@@ -1,0 +1,105 @@
+"""bz2tpu_torch.compress end to end: byte-identical to bz2tpu.compress (JAX)
+and to the NumPy oracle, decoded by stdlib bz2; the import and device
+rules; the command line.
+"""
+
+import bz2 as stdlib_bz2
+import functools
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import bz2tpu_torch
+from bz2tpu.oracle import compress as oracle_compress
+
+from conftest import CORPUS_KINDS, make_corpus
+
+pytest.importorskip("jax")
+from bz2tpu.runtime.compressor import compress as jax_compress  # noqa: E402
+
+
+def _three_way(data: bytes, level: int, **kw) -> bytes:
+    out = bz2tpu_torch.compress(data, level=level, device="cpu", **kw)
+    assert out == jax_compress(data, level=level, **kw)
+    assert out == oracle_compress(data, level=level)
+    assert stdlib_bz2.decompress(out) == data
+    return out
+
+
+@pytest.mark.parametrize("kind", CORPUS_KINDS)
+def test_matches_jax_and_oracle(rng, kind):
+    _three_way(make_corpus(rng, kind, 5000), 1)
+
+
+def test_multi_block_multi_batch(rng):
+    # 350 kB of text at level 1 -> 4 blocks, 2 batches of 2.
+    data = make_corpus(rng, "text", 350_000)
+    out = bz2tpu_torch.compress(data, level=1, parallel=2, device="cpu")
+    assert out == jax_compress(data, level=1, parallel=2)
+    assert stdlib_bz2.decompress(out) == data
+    assert bz2tpu_torch.decompress(out) == data
+
+
+@pytest.mark.parametrize("data,level", [(b"", 9), (b"x", 1)], ids=["empty", "single-byte"])
+def test_edge_inputs(data, level):
+    _three_way(data, level)
+
+
+def test_small_level9_block(rng):
+    _three_way(make_corpus(rng, "runs", 20_000) + make_corpus(rng, "text", 20_000), 9)
+
+
+def test_timings_cover_every_stage(rng):
+    timings = {}
+    data = make_corpus(rng, "text", 3000)
+    out = bz2tpu_torch.compress(data, level=1, device="cpu", timings=timings)
+    assert stdlib_bz2.decompress(out) == data
+    assert set(timings) == {"bwt", "mtf", "rle2_out", "huffman", "pack"}
+
+
+def test_cuda_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bz2tpu_torch.compress(b"abc")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bz2tpu_torch.compress(b"abc", device="cuda")
+
+
+def test_import_and_help_load_no_jax():
+    code = (
+        "import sys, runpy\n"
+        "import bz2tpu_torch\n"
+        "assert 'jax' not in sys.modules, 'import loaded jax'\n"
+        "sys.argv = ['bz2tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('bz2tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert 'jax' not in sys.modules, '--help loaded jax'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage" in proc.stdout
+
+
+def test_cli_round_trip(rng, tmp_path, monkeypatch):
+    from bz2tpu_torch.cli import main
+    from bz2tpu_torch.runtime import compressor
+
+    # The command line compresses on the card; here its compress runs the
+    # CPU path.
+    monkeypatch.setattr(compressor, "compress", functools.partial(compressor.compress, device="cpu"))
+    data = make_corpus(rng, "text", 4000)
+    src = tmp_path / "in.txt"
+    src.write_bytes(data)
+    assert main([str(src), "--size", "1"]) == 0
+    packed = (tmp_path / "in.txt.bz2").read_bytes()
+    assert packed == oracle_compress(data, level=1)
+    out = tmp_path / "back.txt"
+    assert main([str(tmp_path / "in.txt.bz2"), "--dec", "-o", str(out)]) == 0
+    assert out.read_bytes() == data
+    assert main([str(tmp_path / "in.txt.bz2"), "--check"]) == 0
+    assert main([str(tmp_path / "missing")]) == 2
