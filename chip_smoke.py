@@ -15,7 +15,17 @@ Phases (any failure exits non-zero; nothing is caught):
      on the CPU (which tests/test_torch_compress.py holds byte-identical to
      the JAX package and its NumPy oracle); prints MB/s of an unclocked run
      against stdlib bz2 on the same bytes, then the per-stage split of a
-     second, clocked run.
+     second, clocked run;
+  4. the fully-device path on the same corpus at level 9: (a) the dec_chain
+     kernel against its plain loop at the shapes of the stream's batch
+     with the most Huffman groups (exact); (b) decompress_device of
+     phase 3's stream and of stdlib's, each equal to the corpus and
+     decoded on the card with no host fallback, timed against the host C
+     decoder and stdlib bz2; (c) compress_device_intake of the corpus,
+     decoded by stdlib bz2, byte-identical to the CPU path on its first
+     2 MB, MB/s against stdlib; then the peak device memory.
+Each phase's main path runs with every launch count set to 0 just before
+it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package: the port and the
 host layers it shares are reached through bz2tpu_torch. The line before
 the last is the kernel table as JSON; the last line is {"ok": true,
@@ -74,11 +84,28 @@ def compare(name, fn, ref, reps) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-# name -> (source, the TPU kernel it replaces)
+def zero(*counts) -> None:
+    for c in counts:
+        for name in c:
+            c[name] = 0
+
+
+def timed(fn):
+    """(result, seconds) of fn(), synchronised on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# name -> (source, the TPU kernel it replaces). dec_chain replaces no
+# pl.pallas_call: it is the device lax.fori_loop of the Huffman group chain.
 KERNELS = {
     "bwt_sort": ("bz2tpu_torch/csrc/bwt_sort.cu", "bz2tpu/ops/bwt_pallas.py:118"),
     "bwt_rerank": ("bz2tpu_torch/csrc/bwt_rerank.cu", "bz2tpu/ops/bwt_pallas.py:243"),
     "mtf_ranks": ("bz2tpu_torch/csrc/mtf_ranks.cu", "bz2tpu/ops/mtf_pallas.py:72"),
+    "dec_chain": ("bz2tpu_torch/csrc/dec_chain.cu", "bz2tpu/ops/huffman_dec.py:237"),
 }
 
 
@@ -91,7 +118,8 @@ def main() -> int:
     import bench
     import bz2tpu_torch
     from bz2tpu_torch import _build
-    from bz2tpu_torch.ops import bwt, bwt_cuda, mtf, mtf_cuda
+    from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman_dec, mtf, mtf_cuda
+    from bz2tpu_torch.runtime import device_decode
     from bz2tpu_torch.runtime.compressor import HAVE_NATIVE, split_blocks
     from bz2tpu_torch.utils.device import gpu_name_and_power_limit
 
@@ -153,17 +181,13 @@ def main() -> int:
         raise AssertionError("the card's stream differs from the CPU path's on the first 2 MB")
     print("first 2 MB byte-identical to the plain torch path on the CPU: True")
 
-    for counts in (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = bz2tpu_torch.compress(corpus, level=LEVEL)
-    torch.cuda.synchronize()
-    port_s = time.perf_counter() - t0
+    all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, dec_cuda.LAUNCHES)
+    encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks")
+    zero(*all_counts)
+    out, port_s = timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL))
     launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES}
     print(f"main-path kernel launches: {launches}")
-    for name in KERNELS:
+    for name in encode_kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
@@ -193,6 +217,78 @@ def main() -> int:
     print(f"  clocked run {clocked_s:.3f} s, per stage (synchronised): {stages}, "
           f"host split+stitch {host:.3f} s")
     print(f"  card: {card}")
+
+    # -- 4. the fully-device path -------------------------------------------
+    # (a) dec_chain at the shapes of the port stream's batch with the most
+    # Huffman groups (the longest chain of the main path).
+    parsed, _ = device_decode.parse_blocks(out)
+    nbc, group = max(device_decode.batches(parsed),
+                     key=lambda b: max(parsed[i]["selectors"].size for i in b[1]))
+    bt = device_decode.batch_tensors([parsed[i] for i in group], dev)
+    words = device_decode.stream_words(out, dev)
+    jump50 = huffman_dec.jump50_maps(words, bt["start_bit"], bt["lut"], bt["lut_idx"], nbc)
+    tbl, n_groups = bt["selectors"], bt["n_groups"]
+    print(f"dec_chain shapes: jump50 {tuple(jump50.shape)}, groups {tuple(tbl.shape)}, "
+          f"n_groups {n_groups.tolist()}")
+    stats["dec_chain"] = compare("dec_chain", lambda: dec_cuda.group_starts(jump50, tbl, n_groups),
+                                 lambda: dec_cuda.group_starts_ref(jump50, tbl, n_groups), 3)
+    del bt, words, jump50, tbl, n_groups
+
+    # (b) decode on the card: the port's stream and stdlib's, no host fallback.
+    device_decode.decompress_device(stdlib_bz2.compress(head, LEVEL))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    zero(*all_counts)
+    dec_port, dec_port_s = timed(lambda: device_decode._decompress_device_inner(out, True, dev))
+    dec_stock, dec_stock_s = timed(lambda: device_decode._decompress_device_inner(stock, True, dev))
+    dec_launches = dec_cuda.LAUNCHES["dec_chain"]
+    print(f"decode-path kernel launches: {dict(dec_cuda.LAUNCHES)}")
+    if dec_launches <= 0:
+        raise AssertionError("kernel dec_chain was not launched on the device decode path")
+    decode_peak = torch.cuda.max_memory_allocated()
+    if dec_port is None or dec_stock is None:
+        raise AssertionError("the device decode left a 16 MB stream to the host decoder")
+    if dec_port != corpus or dec_stock != corpus:
+        raise AssertionError("decompress_device does not decode the 16 MB streams to the input")
+    if bz2tpu_torch.decompress_device(out) != corpus:
+        raise AssertionError("bz2tpu_torch.decompress_device does not decode the port's stream")
+    _, host_s = timed(lambda: bz2tpu_torch.decompress(out))
+    _, stdlib_dec_s = timed(lambda: stdlib_bz2.decompress(out))
+    print("16 MB streams (port's, stdlib's) decoded on the card with no host fallback: True")
+    print(f"  decompress_device {mb / dec_port_s:.3f} MB/s ({dec_port_s:.3f} s, port's stream), "
+          f"{mb / dec_stock_s:.3f} MB/s ({dec_stock_s:.3f} s, stdlib's stream)")
+    print(f"  host C decoder (bz2tpu_torch.decompress) {mb / host_s:.3f} MB/s ({host_s:.3f} s); "
+          f"stdlib bz2.decompress {mb / stdlib_dec_s:.3f} MB/s ({stdlib_dec_s:.3f} s)")
+    print(f"  peak device memory of the two decodes: {decode_peak} B ({decode_peak / 2**30:.3f} GiB)")
+    dec_timings: dict[str, float] = {}
+    clocked_dec, clocked_dec_s = timed(
+        lambda: device_decode._decompress_device_inner(out, True, dev, dec_timings))
+    if clocked_dec != corpus:
+        raise AssertionError("the clocked device decode differs from the input")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in dec_timings.items())
+    print(f"  clocked decode of the port's stream {clocked_dec_s:.3f} s, per stage (synchronised): {stages}")
+
+    # (c) compress with the intake on the card.
+    t0 = time.perf_counter()
+    intake_head = bz2tpu_torch.compress_device_intake(head, level=LEVEL)  # also the warm-up
+    print(f"warm-up compress_device_intake of {len(head)} B: {time.perf_counter() - t0:.3f} s")
+    if intake_head != bz2tpu_torch.compress_device_intake(head, level=LEVEL, device="cpu"):
+        raise AssertionError("compress_device_intake on the card differs from the CPU path on 2 MB")
+    print("compress_device_intake: first 2 MB byte-identical to the CPU path: True")
+    torch.cuda.reset_peak_memory_stats()
+    zero(*all_counts)
+    intake_out, intake_s = timed(lambda: bz2tpu_torch.compress_device_intake(corpus, level=LEVEL))
+    intake_launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES}
+    print(f"intake-path kernel launches: {intake_launches}")
+    for name in encode_kernels:
+        if intake_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the device-intake path")
+    if stdlib_bz2.decompress(intake_out) != corpus:
+        raise AssertionError("stdlib bz2 does not decode the device-intake stream to the input")
+    print(f"  compress_device_intake {mb / intake_s:.3f} MB/s ({intake_s:.3f} s) ratio "
+          f"{len(intake_out) / len(corpus):.6f}; stdlib {mb / stock_s:.3f} MB/s (phase 3)")
+    print(f"  peak device memory of the intake compress: {torch.cuda.max_memory_allocated()} B")
+    print(f"  card: {card}")
+    launches["dec_chain"] = dec_launches
 
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

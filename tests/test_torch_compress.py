@@ -72,8 +72,9 @@ def test_import_and_help_load_no_jax():
     code = (
         "import sys, runpy\n"
         "import bz2tpu_torch\n"
+        "bz2tpu_torch.decompress_device, bz2tpu_torch.compress_device_intake\n"
         "assert 'jax' not in sys.modules, 'import loaded jax'\n"
-        "sys.argv = ['bz2tpu_torch', '--help']\n"
+        "sys.argv = ['bz2tpu_torch', '--backend', 'device', '--help']\n"
         "try:\n"
         "    runpy.run_module('bz2tpu_torch', run_name='__main__')\n"
         "except SystemExit as e:\n"
@@ -82,24 +83,34 @@ def test_import_and_help_load_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "usage" in proc.stdout
+    assert "usage" in proc.stdout and "--backend" in proc.stdout
 
 
 def test_cli_round_trip(rng, tmp_path, monkeypatch):
-    from bz2tpu_torch.cli import main
-    from bz2tpu_torch.runtime import compressor
+    _cli_round_trip(rng, tmp_path, monkeypatch, "gpu")
 
-    # The command line compresses on the card; here its compress runs the
-    # CPU path.
-    monkeypatch.setattr(compressor, "compress", functools.partial(compressor.compress, device="cpu"))
+
+def test_cli_round_trip_device_backend(rng, tmp_path, monkeypatch):
+    _cli_round_trip(rng, tmp_path, monkeypatch, "device")
+
+
+def _cli_round_trip(rng, tmp_path, monkeypatch, backend):
+    from bz2tpu_torch.cli import main
+    from bz2tpu_torch.runtime import compressor, device_decode
+
+    # The command line runs on the card; here its compress and device
+    # decode run the CPU path.
+    for module, name in ((compressor, "compress"), (compressor, "compress_device_intake"),
+                         (device_decode, "decompress_device")):
+        monkeypatch.setattr(module, name, functools.partial(getattr(module, name), device="cpu"))
     data = make_corpus(rng, "text", 4000)
     src = tmp_path / "in.txt"
     src.write_bytes(data)
-    assert main([str(src), "--size", "1"]) == 0
+    assert main([str(src), "--size", "1", "--backend", backend]) == 0
     packed = (tmp_path / "in.txt.bz2").read_bytes()
     assert packed == oracle_compress(data, level=1)
     out = tmp_path / "back.txt"
-    assert main([str(tmp_path / "in.txt.bz2"), "--dec", "-o", str(out)]) == 0
+    assert main([str(tmp_path / "in.txt.bz2"), "--dec", "-o", str(out), "--backend", backend]) == 0
     assert out.read_bytes() == data
-    assert main([str(tmp_path / "in.txt.bz2"), "--check"]) == 0
-    assert main([str(tmp_path / "missing")]) == 2
+    assert main([str(tmp_path / "in.txt.bz2"), "--check", "--backend", backend]) == 0
+    assert main([str(tmp_path / "missing"), "--backend", backend]) == 2

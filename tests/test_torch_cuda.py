@@ -1,6 +1,6 @@
 """bz2tpu_torch's CUDA kernels on the card: each kernel against its plain
 torch version (exact), the stages and the whole stream on the card against
-the CPU path.
+the CPU path, for compress, compress_device_intake and decompress_device.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX and nothing from conftest, so on a machine with a card and without JAX
@@ -16,8 +16,9 @@ import pytest
 import torch
 
 import bz2tpu_torch
-from bz2tpu_torch.ops import bwt_cuda, mtf, mtf_cuda
+from bz2tpu_torch.ops import bwt_cuda, dec_cuda, mtf, mtf_cuda
 from bz2tpu_torch.ops.bwt import bwt_stage, pair_keys, round0_keys
+from bz2tpu_torch.runtime import device_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +111,44 @@ def test_wrappers_reject_bad_inputs_on_card(cuda):
         bwt_cuda.sort_keys(keys.to(torch.int32), 0, 8)
     with pytest.raises(ValueError):
         mtf_cuda.mtf_ranks(keys.view(2, 5).to(torch.int32), torch.ones(2, dtype=torch.int32), torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def test_dec_chain_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    B, T, nbc, G = 8, 6, 300_000, 2_000
+    # Forward jumps of 50..1000 bits clipped at the end, as jump50 maps are.
+    jump50 = np.minimum(np.arange(nbc) + rng.integers(50, 1000, (B, T, nbc)), nbc - 1).astype(np.int32)
+    tbl = rng.integers(0, T, (B, G)).astype(np.int32)
+    n_groups = np.array([G, 1, 0, 1999, 1000, 17, G, 3], np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (jump50, tbl, n_groups)]
+    launches = dec_cuda.LAUNCHES["dec_chain"]
+    _equal(dec_cuda.group_starts(*args), dec_cuda.group_starts_ref(*args))
+    assert dec_cuda.LAUNCHES["dec_chain"] == launches + 1
+    with pytest.raises(ValueError):
+        dec_cuda.group_starts(args[0], args[1].long(), args[2])
+
+
+def test_decompress_device_on_card_matches_cpu(cuda):
+    data = b"".join(_corpus(kind, 250_000, 21 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
+    for level in (1, 9):
+        comp = stdlib_bz2.compress(data, level)
+        dec_cuda.LAUNCHES["dec_chain"] = 0
+        assert device_decode._decompress_device_inner(comp, True, cuda) == data  # no host fallback
+        assert dec_cuda.LAUNCHES["dec_chain"] > 0
+        assert device_decode._decompress_device_inner(comp, True, torch.device("cpu")) == data
+        assert bz2tpu_torch.decompress_device(comp) == data
+    bad = bytearray(stdlib_bz2.compress(data, 1))
+    bad[len(bad) // 2] ^= 0x10
+    with pytest.raises(ValueError):
+        bz2tpu_torch.decompress_device(bytes(bad))
+
+
+def test_compress_device_intake_on_card_matches_cpu(cuda):
+    data = b"".join(_corpus(kind, 150_000, 31 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
+    data = bytes(300_000) + data  # escalates the window first
+    out = bz2tpu_torch.compress_device_intake(data, level=1, parallel=2)
+    assert out == bz2tpu_torch.compress_device_intake(data, level=1, parallel=2, device="cpu")
+    assert stdlib_bz2.decompress(out) == data
 
 
 def test_compress_on_card_matches_cpu_and_counts_launches(cuda):
