@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (the counterpart of the JAX
 package's compile cache, bz2tpu/utils/jaxenv.py).
 
-At first use, every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into
+At first use, every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``,
+one ``nvcc`` per source, all started together, and the objects link into
 ONE shared library with a plain C interface, which ``ctypes`` loads. The
 library lands in ``build/bz2tpu_torch/`` at the root of the checkout, named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -23,8 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "bz2tpu_torch"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -35,10 +35,11 @@ SIGNATURES = {
     "bz2t_radix_sort_scratch": (_I,),
     "bz2t_radix_sort_u64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bz2t_rerank_scratch": (_I,),
-    "bz2t_rerank": (_P, _I, _I, _P, _P, _P, _P),
+    "bz2t_rerank": (_P, _I, _I, _I, _P, _I, _P, _P, _P, _P),
     "bz2t_mtf_scratch": (_I, _I, _I),
     "bz2t_mtf_ranks": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
     "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "bz2t_huffman_lengths": (_P, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -73,15 +74,31 @@ def _compile(out: Path) -> None:
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src.name, log) for src, proc, log in zip(_sources(), procs, logs) if proc.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode:
+                failed = [("link", link.stdout + link.stderr)]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{name}:\n{log}" for name, log in failed))
+        os.replace(tmp, out)  # atomic: concurrent builds race safely
+    finally:
+        build_seconds = time.perf_counter() - t0
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builds race safely
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def lib() -> ctypes.CDLL:

@@ -54,7 +54,7 @@ def main(argv: list[str] | None = None) -> int:
 
                 result = device_decode.decompress_device(data)
             else:
-                from bz2tpu.runtime.decompressor import decompress
+                from bz2tpu_torch.runtime.decompressor import decompress
 
                 result = decompress(data)
             if args.check:

@@ -2,13 +2,16 @@
 its plain torch version.
 
 Port of bz2tpu/ops/bwt_pallas.py. A doubling round's whole lexicographic
-key, index tie-break included, is one packed int64 (see ops/bwt.py), so
+key, index tie-break and block slot included, is one packed int64 (see
+ops/bwt.py), so
 
   * ``sort_keys`` (K1, csrc/bwt_sort.cu) is a stable LSD radix sort over a
-    bit range of the packed keys (bitonic_sort_pallas's contract), and
+    bit range of the packed keys (bitonic_sort_pallas's contract), one
+    call for all blocks of a batch, and
   * ``rerank`` (K2, csrc/bwt_rerank.cu) finds group heads, takes the
-    running max of head positions and scatters them back to index order
-    (rerank_pallas plus the inverse-permutation sort it was paired with).
+    running max of head positions and scatters them back to index order,
+    block by block (rerank_pallas plus the inverse-permutation sort it was
+    paired with).
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -22,6 +25,7 @@ from bz2tpu_torch import _build
 
 # Kernel launches by wrapper (reset to 0 to count one run).
 LAUNCHES = {"bwt_sort": 0, "bwt_rerank": 0}
+MAX_SLOTS = 64  # K2's per-slot counters (csrc/bwt_rerank.cu kMaxSlots)
 
 
 def _check_keys(keys: torch.Tensor) -> None:
@@ -53,6 +57,8 @@ def sort_keys(keys: torch.Tensor, lo_bit: int, hi_bit: int) -> torch.Tensor:
     _check_keys(keys)
     if not 0 <= lo_bit < hi_bit <= 63:
         raise ValueError(f"bit range [{lo_bit}, {hi_bit}) empty or outside [0, 63)")
+    if keys.numel() >= 1 << 30:
+        raise ValueError(f"at most 2^30 - 1 keys, got {keys.numel()}")
     if keys.device.type == "cpu":
         return sort_keys_ref(keys, lo_bit, hi_bit)
     lib = _build.lib()
@@ -70,46 +76,72 @@ def sort_keys(keys: torch.Tensor, lo_bit: int, hi_bit: int) -> torch.Tensor:
     return out
 
 
-def rerank_ref(keys: torch.Tensor, idx_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2 (the head/cummax/tied chain of ops/bwt.py plus
-    the inverse permutation)."""
+def _slot_args(keys: torch.Tensor, slot_shift: int, offsets: torch.Tensor | None) -> torch.Tensor:
+    if not 1 <= slot_shift <= 63:
+        raise ValueError(f"slot_shift must be in 1..63, got {slot_shift}")
+    if offsets is None:
+        return torch.zeros(1, dtype=torch.int32, device=keys.device)
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.device != keys.device:
+        raise ValueError(f"offsets must be a 1-D int32 tensor on {keys.device}")
+    if not 1 <= offsets.numel() <= MAX_SLOTS:
+        raise ValueError(f"1..{MAX_SLOTS} slots, got {offsets.numel()}")
+    return offsets.contiguous()
+
+
+def rerank_ref(
+    keys: torch.Tensor, idx_bits: int, slot_shift: int = 63, offsets: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2 (the head/cummax/tied chain of bz2tpu's
+    ops/bwt.py plus the inverse permutation, per slot)."""
+    offsets = _slot_args(keys, slot_shift, offsets)
     n = keys.numel()
     group = keys >> idx_bits
     head = torch.ones(n, dtype=torch.bool, device=keys.device)
     head[1:] = group[1:] != group[:-1]
     iota = torch.arange(n, device=keys.device)
     pos = torch.cummax(torch.where(head, iota, 0), 0).values
+    slot = keys >> slot_shift
+    off = offsets.to(torch.int64)[slot]
     rank = torch.empty(n, dtype=torch.int32, device=keys.device)
-    rank[keys & ((1 << idx_bits) - 1)] = pos.to(torch.int32)
+    rank[off + (keys & ((1 << idx_bits) - 1))] = (pos - off).to(torch.int32)
     nxt = torch.ones_like(head)
     nxt[:-1] = head[1:]
-    active = (~head | ~nxt).sum().to(torch.int32)
-    return rank, active
+    tied = (~head | ~nxt).to(torch.int32)
+    active = torch.zeros(offsets.numel(), dtype=torch.int32, device=keys.device)
+    return rank, active.index_add_(0, slot, tied)
 
 
-def rerank(keys: torch.Tensor, idx_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Position ranks of sorted packed keys, in index order.
+def rerank(
+    keys: torch.Tensor, idx_bits: int, slot_shift: int = 63, offsets: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Position ranks of the sorted packed keys of one or more blocks, each
+    block's in index order within its own slice.
 
     ``keys`` is sorted by its group bits (above ``idx_bits``) and carries
-    each position's index in the low ``idx_bits`` (a permutation of
-    0..n-1). Returns (rank (n,) int32, active 0-dim int32): rank[i] is the
-    sorted position of i's group head, active the number of positions in
-    groups of size >= 2.
+    each position's index within its block in the low ``idx_bits``, and
+    the block's slot from ``slot_shift`` up. Slot s holds the positions
+    offsets[s] .. offsets[s + 1] - 1 (the last one up to n), in slot order,
+    as a stable sort of keys entered in (slot, index) order leaves them.
+    ``offsets`` (L,) int32 defaults to one slot at 0. Returns (rank (n,)
+    int32, active (L,) int32): rank[offsets[s] + i] is the sorted position,
+    within slot s, of the head of i's group; active[s] the number of slot
+    s's positions in groups of size >= 2.
     """
     _check_keys(keys)
     if not 1 <= idx_bits <= 31:
         raise ValueError(f"idx_bits must be in 1..31, got {idx_bits}")
+    offsets = _slot_args(keys, slot_shift, offsets)
     if keys.device.type == "cpu":
-        return rerank_ref(keys, idx_bits)
+        return rerank_ref(keys, idx_bits, slot_shift, offsets)
     lib = _build.lib()
     n = keys.numel()
     rank = torch.empty(n, dtype=torch.int32, device=keys.device)
-    active = torch.empty((), dtype=torch.int32, device=keys.device)
+    active = torch.empty(offsets.numel(), dtype=torch.int32, device=keys.device)
     scratch = torch.empty(lib.bz2t_rerank_scratch(n), dtype=torch.int32, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     err = lib.bz2t_rerank(
-        keys.data_ptr(), n, idx_bits, rank.data_ptr(), active.data_ptr(),
-        scratch.data_ptr(), stream,
+        keys.data_ptr(), n, idx_bits, slot_shift, offsets.data_ptr(), offsets.numel(),
+        rank.data_ptr(), active.data_ptr(), scratch.data_ptr(), stream,
     )
     _build.check(err, "bwt_rerank")
     LAUNCHES["bwt_rerank"] += 1

@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from bz2tpu.format.crc32 import CRC32_TABLE, _op_compose, _op_shift_one_byte, shift_operator
+from bz2tpu_torch.format.crc32 import CRC32_TABLE, _op_compose, _op_shift_one_byte, shift_operator
 
 MASK32 = 0xFFFFFFFF
 DEFAULT_LANES = 1 << 16

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from bz2tpu.format import constants as C
+from bz2tpu_torch.format import constants as C
 from bz2tpu_torch.ops.huffman import ALPHA, NTAB
 
 _I64 = torch.int64

@@ -11,20 +11,21 @@ The two matrix products of the refinement (group x table cost, per-table
 frequencies) run in float64: every count is an integer far below 2^53, so
 the products are exact, and TF32 never applies to float64.
 
-The 257-step two-queue tree scan (huffman_depths) is a Python loop of
-small batched ops; on a GPU that is some thousands of launches per
-refinement iteration.
+Code lengths come from ops/huffman_cuda.code_lengths: on the card the
+kernel D2 builds each table's tree and applies the depth cap in one launch
+per refinement iteration; on the CPU its plain version, the batched
+257-step tree scan, runs instead.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bz2tpu.format import constants as C
+from bz2tpu_torch.format import constants as C
+from bz2tpu_torch.ops.huffman_cuda import code_lengths
 
 ALPHA = C.HUFFMAN_MAX_ALPHABET  # 258
 NTAB = C.HUFFMAN_MAX_TABLES  # 6
-_INF_W = 1 << 30
 _NEG = -(1 << 30)
 _I64 = torch.int64
 
@@ -40,72 +41,6 @@ def table_count(n_sym: torch.Tensor) -> torch.Tensor:
     for t in C.TABLE_COUNT_THRESHOLDS:
         count += (n_sym >= t).to(_I64)
     return count
-
-
-def huffman_depths(weights: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Leaf depths of the Huffman trees over weights[r, :alpha[r]].
-
-    weights: (R, 258) int64, entries >= alpha ignored; alpha: (R,). Two
-    queues over stably sorted leaves, a leaf preferred over an internal
-    node on a weight tie (the oracle's tie-breaks). Returns (R, 258) int64.
-    """
-    R = weights.shape[0]
-    dev = weights.device
-    lanes = torch.arange(ALPHA, dtype=_I64, device=dev)
-    valid = lanes[None, :] < alpha[:, None]
-    leaf_w, order = torch.sort(torch.where(valid, weights, _INF_W), dim=1, stable=True)
-    n_nodes = 2 * ALPHA - 1  # leaves by symbol id, internal node j at ALPHA + j
-    parent = torch.arange(n_nodes + 1, dtype=_I64, device=dev).repeat(R, 1)  # + trash
-    node_w = torch.full((R, ALPHA - 1), _INF_W, dtype=_I64, device=dev)
-    li = torch.zeros(R, 1, dtype=_I64, device=dev)
-    ii = torch.zeros(R, 1, dtype=_I64, device=dev)
-    alpha = alpha[:, None].to(_I64)
-    trash = torch.full_like(li, n_nodes)
-
-    def pick(li, ii, j):
-        leaf_avail = li < alpha
-        node_avail = ii < j
-        lw = torch.where(leaf_avail, leaf_w.gather(1, li.clamp(max=ALPHA - 1)), _INF_W)
-        nw = torch.where(node_avail, node_w.gather(1, ii.clamp(max=ALPHA - 2)), _INF_W)
-        take_leaf = leaf_avail & (~node_avail | (lw <= nw))
-        pick_id = torch.where(take_leaf, order.gather(1, li.clamp(max=ALPHA - 1)), ALPHA + ii)
-        take = take_leaf.to(_I64)
-        return li + take, ii + 1 - take, pick_id, torch.where(take_leaf, lw, nw)
-
-    for j in range(ALPHA - 1):
-        active = j < alpha - 1
-        li1, ii1, p0, w0 = pick(li, ii, j)
-        li2, ii2, p1, w1 = pick(li1, ii1, j)
-        node_w[:, j : j + 1] = torch.where(active, w0 + w1, _INF_W)
-        parent.scatter_(1, torch.where(active, p0, trash), ALPHA + j)
-        parent.scatter_(1, torch.where(active, p1, trash), ALPHA + j)
-        li = torch.where(active, li2, li)
-        ii = torch.where(active, ii2, ii)
-
-    # Depth = parent hops to the (self-parented) root, by pointer doubling.
-    parent = parent[:, :n_nodes]
-    hop = (parent != torch.arange(n_nodes, device=dev)[None, :]).to(_I64)
-    jump = parent
-    for _ in range(10):  # 2^10 > any depth (<= 257)
-        hop = hop + hop.gather(1, jump)
-        jump = jump.gather(1, jump)
-    return torch.where(valid, hop[:, :ALPHA], 0)
-
-
-def code_lengths(freqs: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Length-limited code lengths (1..17 below alpha, 0 beyond) for each
-    row of freqs (R, 258): depths of the Huffman tree, with the weights
-    flattened to 1 + w/2 on every row that exceeds the cap, until none does."""
-    lanes = torch.arange(ALPHA, dtype=_I64, device=freqs.device)
-    valid = lanes[None, :] < alpha[:, None]
-    w = torch.where(valid, freqs.to(_I64).clamp(min=1), 0)
-    depths = huffman_depths(w, alpha)
-    over = depths.max(1).values > C.HUFFMAN_ENCODE_MAX_LENGTH
-    while bool(over.any()):
-        w = torch.where(over[:, None] & valid, 1 + (w >> 1), w)
-        depths = torch.where(over[:, None], huffman_depths(w, alpha), depths)
-        over &= depths.max(1).values > C.HUFFMAN_ENCODE_MAX_LENGTH
-    return depths
 
 
 def seed_lengths(freqs: torch.Tensor, n_groups: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bz2tpu.format import constants as C
+from bz2tpu_torch.format import constants as C
 from bz2tpu_torch.ops.dec_cuda import group_starts
 
 KMAX = C.HUFFMAN_DECODE_MAX_ACCEPTED_LENGTH  # 20: longer codes are invalid

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from bz2tpu.format import constants as C
+from bz2tpu_torch.format import constants as C
 from bz2tpu_torch.ops.crc import crc32_ranges
 from bz2tpu_torch.ops.rle1 import block_cuts, rle1_encode
 

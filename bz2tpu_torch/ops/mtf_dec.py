@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from bz2tpu.format import constants as C
+from bz2tpu_torch.format import constants as C
 
 CHUNK = 128  # literals per permutation chunk, as bz2tpu.ops.mtf_dec._CHUNK
 _I32_MAX = 2**31 - 1

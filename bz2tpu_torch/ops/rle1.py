@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from bz2tpu.format import constants as C
+from bz2tpu_torch.format import constants as C
 
 _BIG = 2**31 - 1
 

@@ -1,9 +1,9 @@
 """compress(): host RLE1/split -> batched device encode -> stitch, and
 compress_device_intake(): the same with the intake on the device too.
 
-Port of bz2tpu/runtime/compressor.py. The host splitting, the bit-level
-stitch and the stream CRC are the JAX package's own, imported (they use
-no JAX); each batch of at most ``parallel`` blocks goes through
+Port of bz2tpu/runtime/compressor.py. The host splitting (the port's
+native C splitter, or its NumPy copy), the bit-level stitch and the stream
+CRC run on the host; each batch of at most ``parallel`` blocks goes through
 ops/pipeline.encode_batch on the device, and its packed words come back in
 one device-to-host copy. Batches are not padded to a fixed size and there
 is no dispatch-ahead: eager torch has no per-shape compile to amortise.
@@ -14,11 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bz2tpu.format import constants as C
-from bz2tpu.format.bitio import BitWriter, concat_bitstreams
-from bz2tpu.format.crc32 import stream_crc
-from bz2tpu.native import HAVE_NATIVE  # noqa: F401 - whether split_blocks runs in C
-from bz2tpu.runtime.compressor import split_blocks
+from bz2tpu_torch import native
+from bz2tpu_torch.format import constants as C
+from bz2tpu_torch.format.bitio import BitWriter, concat_bitstreams
+from bz2tpu_torch.format.crc32 import stream_crc
+from bz2tpu_torch.native import HAVE_NATIVE  # noqa: F401 - whether split_blocks runs in C
+from bz2tpu_torch.oracle.encoder import Rle1Block, rle1_split
 from bz2tpu_torch.ops.intake import chunk_capacity, device_intake
 from bz2tpu_torch.ops.pipeline import encode_batch
 from bz2tpu_torch.utils.device import resolve_device
@@ -26,6 +27,19 @@ from bz2tpu_torch.utils.device import resolve_device
 DEFAULT_BATCH = 8
 
 Part = tuple[np.ndarray, int]  # (bytes, valid bits) of one piece of the stream
+
+
+def split_blocks(data: bytes | np.ndarray, level: int) -> list[Rle1Block]:
+    """RLE1 + CRC block intake: native C single pass when built, NumPy
+    otherwise (bz2tpu.runtime.compressor.split_blocks)."""
+    if native.HAVE_NATIVE:
+        arr = data if isinstance(data, (bytes, bytearray, memoryview)) else np.ascontiguousarray(data, np.uint8)
+        return [
+            Rle1Block(np.frombuffer(b, np.uint8), raw, crc)
+            for b, raw, crc in native.rle1_split(arr, level)
+        ]
+    arr = np.frombuffer(bytes(data), np.uint8) if not isinstance(data, np.ndarray) else data
+    return rle1_split(arr, level)
 
 
 def _as_array(data: bytes | np.ndarray) -> np.ndarray:

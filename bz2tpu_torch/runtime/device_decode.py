@@ -15,8 +15,8 @@ Port of bz2tpu/runtime/device_decode.py:
 Every device result is validated exactly (EOB at the block's end bit, run
 lengths in bounds, then the block CRC). A stream the device path cannot
 certify (several members, a randomised block, a block whose ``ok`` is
-false) goes to the host decoder as a whole, so the output equals
-bz2tpu.runtime.decompressor.decompress on every input. An error from a
+false) goes to the host decoder (runtime/decompressor.py) as a whole, so
+the output equals bz2tpu.runtime.decompressor.decompress on every input. An error from a
 kernel build or launch is not such a case: it propagates.
 
 Blocks are bucketed by the JAX form's bit-range cap (the symbol data's
@@ -32,13 +32,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bz2tpu import native
-from bz2tpu.format import constants as C
-from bz2tpu.format.bitio import BitReader
-from bz2tpu.format.crc32 import stream_crc_fold
-from bz2tpu.oracle import decoder as od
-from bz2tpu.oracle.decoder import Bz2CrcError, Bz2FormatError
-from bz2tpu.runtime.decompressor import decompress as host_decompress
+from bz2tpu_torch import native
+from bz2tpu_torch.format import constants as C
+from bz2tpu_torch.format.bitio import BitReader
+from bz2tpu_torch.format.crc32 import stream_crc_fold
+from bz2tpu_torch.oracle import decoder as od
+from bz2tpu_torch.oracle.decoder import Bz2CrcError, Bz2FormatError
 from bz2tpu_torch.ops.huffman_dec import (
     build_len_luts,
     decode_symbol_data,
@@ -48,6 +47,7 @@ from bz2tpu_torch.ops.huffman_dec import (
 from bz2tpu_torch.ops.ibwt import ibwt
 from bz2tpu_torch.ops.mtf_dec import CHUNK, mtf_rle2_decode
 from bz2tpu_torch.ops.pipeline import StageClock, _lap
+from bz2tpu_torch.runtime.decompressor import decompress as host_decompress
 from bz2tpu_torch.utils.device import resolve_device
 
 BUCKET_W = 8  # blocks per device batch, as the JAX form's default

@@ -6,12 +6,17 @@ Phases (any failure exits non-zero; nothing is caught):
   1. environment: card name and power limit, torch/CUDA versions, nvcc,
      the native host library, and the kernel build time;
   2. each CUDA kernel against its plain torch version on the card, at the
-     main path's shapes (a 900 kB level-9 block for the BWT sort and
-     re-rank, a batch of 8 such blocks for the MTF ranks): results must be
-     exactly equal (integer codec, tolerance 0), both timed with CUDA events;
+     main path's shapes: the corpus's first batch of 8 level-9 blocks for
+     the BWT sort (all blocks in one sort, against a stable torch.sort of
+     the same bit field too) and the slot-aware re-rank, the MTF ranks of
+     that batch, and the Huffman code lengths of its first refinement
+     iteration (48 table rows): results must be exactly equal (integer
+     codec, tolerance 0), all timed with CUDA events;
   3. the main path: bz2tpu_torch.compress(level=9) on a 16 MB mixed corpus,
      decoded by stdlib bz2 and by bz2tpu_torch.decompress, with every kernel
-     launched; its first 2 MB byte-identical to the port's plain torch path
+     launched, and the BWT sort once per doubling round of each batch (the
+     count each batch's slowest block needs alone), not once per block and
+     round; its first 2 MB byte-identical to the port's plain torch path
      on the CPU (which tests/test_torch_compress.py holds byte-identical to
      the JAX package and its NumPy oracle); prints MB/s of an unclocked run
      against stdlib bz2 on the same bytes, then the per-stage split of a
@@ -23,13 +28,18 @@ Phases (any failure exits non-zero; nothing is caught):
      decoded on the card with no host fallback, timed against the host C
      decoder and stdlib bz2; (c) compress_device_intake of the corpus,
      decoded by stdlib bz2, byte-identical to the CPU path on its first
-     2 MB, MB/s against stdlib; then the peak device memory.
+     2 MB, MB/s against stdlib, with the code-length kernel launched;
+     then the peak device memory.
 Each phase's main path runs with every launch count set to 0 just before
 it, and fails if a kernel of that path was not launched.
-The script imports nothing of JAX or of the JAX package: the port and the
-host layers it shares are reached through bz2tpu_torch. The line before
-the last is the kernel table as JSON; the last line is {"ok": true,
-"device": {...}}. Without CUDA it exits 1 and prints no result.
+The script imports nothing of JAX or of the JAX package. The line before
+the last is the kernel table as JSON: per kernel its launches on the 16 MB
+compress (dec_chain: on the decode of the port's stream), its time and
+its plain version's at the shapes above, the library call's where one
+computes the same function, and its bound: the bytes it must move (inputs
+read once, outputs written once) over 3.35 TB/s, or its operations over
+67 T/s where those take longer. The last line is {"ok": true, "device":
+{...}}. Without CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -71,17 +81,28 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def compare(name, fn, ref, reps) -> dict:
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+CORE_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores (float32 rate)
+
+
+def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None) -> dict:
     """Kernel call fn() against its plain version ref() on the same inputs:
-    exact agreement, then both timed."""
+    exact agreement, then both timed, with the library call where there is
+    one, and the kernel's bound from the bytes and operations given."""
     got, want = fn(), ref()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    ms, plain_ms = cuda_ms(fn, reps), cuda_ms(ref, reps)
-    print(f"kernel {name}: max_abs_err={err} (tolerance 0)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
     if err != 0:
         raise AssertionError(f"{name} disagrees with its plain version (max_abs_err {err})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    ms, plain_ms = cuda_ms(fn, reps), cuda_ms(ref, reps)
+    library_ms = None if library is None else cuda_ms(library, reps)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / CORE_OPS_PER_S * 1e3
+    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+    print(f"kernel {name}: max_abs_err={err} (tolerance 0)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f"{lib}  bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops} ops)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def zero(*counts) -> None:
@@ -99,14 +120,18 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-# name -> (source, the TPU kernel it replaces). dec_chain replaces no
-# pl.pallas_call: it is the device lax.fori_loop of the Huffman group chain.
+# name -> (source, the TPU kernel it replaces). dec_chain and
+# huffman_lengths replace no pl.pallas_call: they are the device loops of
+# the Huffman group chain (lax.fori_loop) and of the code-length tree scan
+# (lax.scan inside the depth cap's lax.while_loop).
 KERNELS = {
     "bwt_sort": ("bz2tpu_torch/csrc/bwt_sort.cu", "bz2tpu/ops/bwt_pallas.py:118"),
     "bwt_rerank": ("bz2tpu_torch/csrc/bwt_rerank.cu", "bz2tpu/ops/bwt_pallas.py:243"),
     "mtf_ranks": ("bz2tpu_torch/csrc/mtf_ranks.cu", "bz2tpu/ops/mtf_pallas.py:72"),
+    "huffman_lengths": ("bz2tpu_torch/csrc/huffman_lengths.cu", "bz2tpu/ops/huffman.py:111"),
     "dec_chain": ("bz2tpu_torch/csrc/dec_chain.cu", "bz2tpu/ops/huffman_dec.py:237"),
 }
+
 
 
 def main() -> int:
@@ -118,9 +143,10 @@ def main() -> int:
     import bench
     import bz2tpu_torch
     from bz2tpu_torch import _build
-    from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman_dec, mtf, mtf_cuda
+    from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda
+    from bz2tpu_torch.ops.pipeline import encode_batch
     from bz2tpu_torch.runtime import device_decode
-    from bz2tpu_torch.runtime.compressor import HAVE_NATIVE, split_blocks
+    from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH, HAVE_NATIVE, _batch_tensors, split_blocks
     from bz2tpu_torch.utils.device import gpu_name_and_power_limit
 
     dev = torch.device("cuda")
@@ -138,36 +164,61 @@ def main() -> int:
     corpus = bench.make_mixed_corpus(CORPUS_BYTES)
     # -- 2. kernels against their plain versions at main-path shapes -------
     blocks = split_blocks(corpus, LEVEL)
-    batch = blocks[:8]
-    buf = np.zeros((len(batch), max(b.data.size for b in batch)), np.uint8)
-    for i, b in enumerate(batch):
-        buf[i, : b.data.size] = b.data
-    ns = torch.tensor([b.data.size for b in batch], dtype=torch.int32, device=dev)
-    blocks_t = torch.from_numpy(buf).to(dev)
-    n0 = int(ns[0])
-    print(f"kernel shapes: BWT block n={n0}; MTF batch {tuple(blocks_t.shape)}")
+    batch = blocks[:DEFAULT_BATCH]
+    blocks_t, ns, crcs = _batch_tensors(batch, dev)
+    ns_host = ns.tolist()
+    nb = max(ns_host).bit_length()
+    lay = bwt.layout(list(range(len(batch))), ns_host, dev)
+    offsets = lay.off.to(torch.int32)
+    total = sum(ns_host)
+    print(f"kernel shapes: first batch {tuple(blocks_t.shape)}, n={ns_host}, {total} keys a BWT round")
 
     # The table reports each kernel at its most frequent main-path use: the
-    # pair-round sort and re-rank, and the MTF ranks of one batch.
+    # batch's pair-round sort and re-rank, the MTF ranks of the batch and
+    # the code lengths of one refinement iteration.
     stats: dict[str, dict] = {}
-    keys0, nb, k0 = bwt.round0_keys(blocks_t[0, :n0].to(torch.int64))
-    sorted0 = bwt_cuda.sort_keys_ref(keys0, nb, nb + 24)
-    compare("bwt_sort_round0", lambda: bwt_cuda.sort_keys(keys0, nb, nb + 24),
-            lambda: bwt_cuda.sort_keys_ref(keys0, nb, nb + 24), 10)
-    rank0, _ = bwt_cuda.rerank_ref(sorted0, nb)
-    keys1 = bwt.pair_keys(rank0, k0, nb)
-    sorted1 = bwt_cuda.sort_keys_ref(keys1, nb, 3 * nb)
-    stats["bwt_sort"] = compare("bwt_sort", lambda: bwt_cuda.sort_keys(keys1, nb, 3 * nb),
-                                lambda: bwt_cuda.sort_keys_ref(keys1, nb, 3 * nb), 10)
-    compare("bwt_rerank_round0", lambda: bwt_cuda.rerank(sorted0, nb),
-            lambda: bwt_cuda.rerank_ref(sorted0, nb), 10)
-    stats["bwt_rerank"] = compare("bwt_rerank", lambda: bwt_cuda.rerank(sorted1, nb),
-                                  lambda: bwt_cuda.rerank_ref(sorted1, nb), 10)
+    keys0, hi0 = bwt.round0_keys(blocks_t, lay, nb)
+    compare("bwt_sort_round0", lambda: bwt_cuda.sort_keys(keys0, nb, hi0),
+            lambda: bwt_cuda.sort_keys_ref(keys0, nb, hi0), 10, nbytes=16 * total)
+    sorted0 = bwt_cuda.sort_keys_ref(keys0, nb, hi0)
+    rank0, _ = bwt_cuda.rerank_ref(sorted0, nb, nb + 24, offsets)
+    k0 = torch.tensor([1 if n < 4 else 3 for n in ns_host], device=dev)
+    keys1, hi1 = bwt.pair_keys(rank0, k0, lay, nb)
+    field1 = (keys1 >> nb) & ((1 << (hi1 - nb)) - 1)
+    sorted1 = bwt_cuda.sort_keys_ref(keys1, nb, hi1)
+    print(f"pair-round sort: bits [{nb}, {hi1}) of {total} keys")
+    stats["bwt_sort"] = compare(
+        "bwt_sort", lambda: bwt_cuda.sort_keys(keys1, nb, hi1), lambda: bwt_cuda.sort_keys_ref(keys1, nb, hi1),
+        10, nbytes=16 * total, library=lambda: torch.sort(field1, stable=True))
+    compare("bwt_rerank_round0", lambda: bwt_cuda.rerank(sorted0, nb, nb + 24, offsets),
+            lambda: bwt_cuda.rerank_ref(sorted0, nb, nb + 24, offsets), 10, nbytes=12 * total)
+    stats["bwt_rerank"] = compare(
+        "bwt_rerank", lambda: bwt_cuda.rerank(sorted1, nb, 3 * nb, offsets),
+        lambda: bwt_cuda.rerank_ref(sorted1, nb, 3 * nb, offsets), 10, nbytes=12 * total)
     last, _ = bwt.bwt_stage(blocks_t, ns)
     cseq, _, m, _, n_in_use = mtf.collapse(last, ns)
     print(f"MTF collapsed lengths m={m.tolist()}")
-    stats["mtf_ranks"] = compare("mtf_ranks", lambda: mtf_cuda.mtf_ranks(cseq, n_in_use, m),
-                                 lambda: mtf_cuda.mtf_ranks_ref(cseq, n_in_use, m), 3)
+    stats["mtf_ranks"] = compare(
+        "mtf_ranks", lambda: mtf_cuda.mtf_ranks(cseq, n_in_use, m), lambda: mtf_cuda.mtf_ranks_ref(cseq, n_in_use, m),
+        3, nbytes=8 * int(m.sum()), ops=int((m.long() * n_in_use.long()).sum()))
+    # The code-length rows of the batch's first refinement iteration, as
+    # the main path hands them to the kernel.
+    rows = []
+    real_code_lengths = huffman.code_lengths
+    huffman.code_lengths = lambda f, a: rows.append((f.clone(), a.clone())) or real_code_lengths(f, a)
+    try:
+        encode_batch(blocks_t, ns, crcs)
+    finally:
+        huffman.code_lengths = real_code_lengths
+    freqs, alphas = rows[0]
+    n_rows = freqs.shape[0]
+    print(f"code-length rows: {tuple(freqs.shape)}, alphabets {sorted(set(alphas.tolist()))}; "
+          f"{len(rows)} refinement iterations in the batch")
+    stats["huffman_lengths"] = compare(
+        "huffman_lengths", lambda: huffman_cuda.code_lengths(freqs, alphas),
+        lambda: huffman_cuda.code_lengths_ref(freqs, alphas), 3,
+        nbytes=16 * freqs.numel() + 8 * n_rows, ops=int((alphas.long() ** 2).sum()))
+    del keys0, sorted0, rank0, keys1, field1, sorted1, last, cseq
 
     # -- 3. the main path ---------------------------------------------------
     head = corpus[:CHECK_BYTES]
@@ -181,15 +232,33 @@ def main() -> int:
         raise AssertionError("the card's stream differs from the CPU path's on the first 2 MB")
     print("first 2 MB byte-identical to the plain torch path on the CPU: True")
 
-    all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, dec_cuda.LAUNCHES)
-    encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks")
+    # K1's expected launches: each batch sorts once per doubling round, as
+    # often as its slowest block needs alone; the per-block driver sorted
+    # once per block and round.
+    def sort_rounds(block) -> int:
+        """K1 launches of one block's BWT alone: its doubling rounds."""
+        bwt_cuda.LAUNCHES["bwt_sort"] = 0
+        bwt.bwt_stage(*_batch_tensors([block], dev)[:2])
+        return bwt_cuda.LAUNCHES["bwt_sort"]
+
+    rounds = [[sort_rounds(b) for b in blocks[i : i + DEFAULT_BATCH]]
+              for i in range(0, len(blocks), DEFAULT_BATCH)]
+    want_sorts = sum(max(r) for r in rounds)
+    print(f"doubling rounds per block, by batch: {rounds}; batched sorts {want_sorts}, "
+          f"per-block sorts {sum(map(sum, rounds))}")
+
+    all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES, dec_cuda.LAUNCHES)
+    encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks", "huffman_lengths")
     zero(*all_counts)
     out, port_s = timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL))
-    launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES}
+    launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
     print(f"main-path kernel launches: {launches}")
     for name in encode_kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if not launches["bwt_sort"] == launches["bwt_rerank"] == want_sorts < sum(map(sum, rounds)):
+        raise AssertionError(f"K1/K2 launched {launches['bwt_sort']}/{launches['bwt_rerank']} times, "
+                             f"not once per round of each batch ({want_sorts})")
 
     t0 = time.perf_counter()
     stock = stdlib_bz2.compress(corpus, LEVEL)
@@ -230,8 +299,11 @@ def main() -> int:
     tbl, n_groups = bt["selectors"], bt["n_groups"]
     print(f"dec_chain shapes: jump50 {tuple(jump50.shape)}, groups {tuple(tbl.shape)}, "
           f"n_groups {n_groups.tolist()}")
+    # Its bytes: per group, the selector read, the one jump-map entry the
+    # chain visits and the start written.
     stats["dec_chain"] = compare("dec_chain", lambda: dec_cuda.group_starts(jump50, tbl, n_groups),
-                                 lambda: dec_cuda.group_starts_ref(jump50, tbl, n_groups), 3)
+                                 lambda: dec_cuda.group_starts_ref(jump50, tbl, n_groups), 3,
+                                 nbytes=12 * int(n_groups.sum()) + 4 * n_groups.numel())
     del bt, words, jump50, tbl, n_groups
 
     # (b) decode on the card: the port's stream and stdlib's, no host fallback.
@@ -239,11 +311,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     zero(*all_counts)
     dec_port, dec_port_s = timed(lambda: device_decode._decompress_device_inner(out, True, dev))
-    dec_stock, dec_stock_s = timed(lambda: device_decode._decompress_device_inner(stock, True, dev))
     dec_launches = dec_cuda.LAUNCHES["dec_chain"]
-    print(f"decode-path kernel launches: {dict(dec_cuda.LAUNCHES)}")
+    print(f"decode-path kernel launches (port's stream): {dict(dec_cuda.LAUNCHES)}")
     if dec_launches <= 0:
         raise AssertionError("kernel dec_chain was not launched on the device decode path")
+    dec_stock, dec_stock_s = timed(lambda: device_decode._decompress_device_inner(stock, True, dev))
     decode_peak = torch.cuda.max_memory_allocated()
     if dec_port is None or dec_stock is None:
         raise AssertionError("the device decode left a 16 MB stream to the host decoder")
@@ -277,7 +349,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     zero(*all_counts)
     intake_out, intake_s = timed(lambda: bz2tpu_torch.compress_device_intake(corpus, level=LEVEL))
-    intake_launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES}
+    intake_launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
     print(f"intake-path kernel launches: {intake_launches}")
     for name in encode_kernels:
         if intake_launches[name] <= 0:

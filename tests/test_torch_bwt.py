@@ -17,6 +17,7 @@ from bz2tpu.ops.bwt_pallas import (  # noqa: E402
     bwt_encode_pallas,
     rerank_pallas,
 )
+from bz2tpu_torch.ops import bwt as bwt_mod  # noqa: E402
 from bz2tpu_torch.ops import bwt_cuda  # noqa: E402
 from bz2tpu_torch.ops.bwt import bwt_encode, bwt_stage  # noqa: E402
 
@@ -187,3 +188,79 @@ def test_bwt_stage_batch(rng):
     np.testing.assert_array_equal(got_last.numpy(), np.asarray(want_last))
     np.testing.assert_array_equal(got_ptr.numpy(), np.asarray(want_ptr))
     assert got_ptr.dtype == torch.int32
+
+
+def _batch(rows, cap=None):
+    """(blocks (B, cap) uint8, ns (B,) int32) numpy arrays from byte rows."""
+    cap = cap or max(len(r) for r in rows)
+    blocks = np.zeros((len(rows), cap), np.uint8)
+    for i, r in enumerate(rows):
+        blocks[i, : len(r)] = np.frombuffer(r, np.uint8)
+    return blocks, np.array([len(r) for r in rows], np.int32)
+
+
+def _stage_pair(blocks, ns):
+    from bz2tpu.ops.pipeline import bwt_stage as jax_bwt_stage
+
+    got_last, got_ptr = bwt_stage(torch.from_numpy(blocks), torch.from_numpy(ns))
+    want_last, want_ptr = jax_bwt_stage(jnp.asarray(blocks), jnp.asarray(ns))
+    np.testing.assert_array_equal(got_last.numpy(), np.asarray(want_last))
+    np.testing.assert_array_equal(got_ptr.numpy(), np.asarray(want_ptr))
+
+
+def _count_sorts(monkeypatch, blocks, ns) -> int:
+    calls = []
+    real = bwt_mod.sort_keys
+    monkeypatch.setattr(bwt_mod, "sort_keys", lambda *a: calls.append(1) or real(*a))
+    bwt_stage(torch.from_numpy(blocks), torch.from_numpy(ns))
+    monkeypatch.setattr(bwt_mod, "sort_keys", real)
+    return len(calls)
+
+
+_MIXED_ROWS = {
+    "tiny-n": [b"q", b"ab", b"zzy", b"abca"],
+    "periodic-and-equal": [bytes(bytearray(range(1, 8)) * 40), b"\x07" * 300, b"ab" * 150, b"xyz"],
+    "different-rounds": [b"abcdefgh" * 2, bytes(range(256)), b"a" * 200 + b"b", b"abcabcabd" * 30],
+}
+
+
+@pytest.mark.parametrize("case", list(_MIXED_ROWS))
+def test_bwt_stage_mixed_batch_matches_jax(monkeypatch, case):
+    blocks, ns = _batch(_MIXED_ROWS[case], cap=320)
+    _stage_pair(blocks, ns)
+    # One sort per round for the whole batch: as many as its slowest block.
+    per_block = [_count_sorts(monkeypatch, blocks[i : i + 1], ns[i : i + 1]) for i in range(len(ns))]
+    assert _count_sorts(monkeypatch, blocks, ns) == max(per_block)
+
+
+def test_bwt_stage_splits_batches_beyond_the_slot_limit(monkeypatch, rng):
+    assert bwt_mod.slot_limit(20) == 8  # level 9: 3 slot bits above 60
+    assert bwt_mod.slot_limit(21) == 1
+    rows = [make_corpus(rng, kind, 150 + 37 * i) for i, kind in enumerate(CORPUS_KINDS * 2)]
+    blocks, ns = _batch(rows)
+    _stage_pair(blocks, ns)
+    monkeypatch.setattr(bwt_mod, "MAX_SLOTS", 3)
+    assert bwt_mod.slot_limit(10) == 3
+    sizes = []
+    real = bwt_mod._sort_batch
+    monkeypatch.setattr(bwt_mod, "_sort_batch", lambda b, n: sizes.append(len(n)) or real(b, n))
+    _stage_pair(blocks, ns)
+    assert sizes == [3] * (len(rows) // 3) + ([len(rows) % 3] if len(rows) % 3 else [])
+
+
+def test_rerank_ref_with_slots_matches_per_block(rng):
+    # Two blocks sorted together: each block's ranks and active count are
+    # what it gets alone.
+    nb, ns = 10, [700, 300]
+    per_block, keys = [], []
+    for s, n in enumerate(ns):
+        k = np.sort(rng.integers(0, n // 4, n)).astype(np.int64)
+        packed = (k << nb) | rng.permutation(n)
+        per_block.append(bwt_cuda.rerank_ref(torch.from_numpy(packed), nb))
+        keys.append((s << 30) | packed)
+    offsets = torch.tensor([0, ns[0]], dtype=torch.int32)
+    rank, active = bwt_cuda.rerank(torch.from_numpy(np.concatenate(keys)), nb, 30, offsets)
+    np.testing.assert_array_equal(rank.numpy(), np.concatenate([r.numpy() for r, _ in per_block]))
+    np.testing.assert_array_equal(active.numpy(), [int(a) for _, a in per_block])
+    with pytest.raises(ValueError):
+        bwt_cuda.rerank(torch.from_numpy(np.concatenate(keys)), nb, 30, offsets.long())

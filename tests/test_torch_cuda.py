@@ -16,8 +16,8 @@ import pytest
 import torch
 
 import bz2tpu_torch
-from bz2tpu_torch.ops import bwt_cuda, dec_cuda, mtf, mtf_cuda
-from bz2tpu_torch.ops.bwt import bwt_stage, pair_keys, round0_keys
+from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman_cuda, mtf, mtf_cuda
+from bz2tpu_torch.ops.bwt import bwt_stage
 from bz2tpu_torch.runtime import device_decode
 
 pytestmark = pytest.mark.cuda
@@ -49,25 +49,69 @@ def _equal(got, want):
 
 @pytest.mark.parametrize("kind", ["text", "runs", "random"])
 def test_bwt_kernels_match_plain(cuda, kind):
-    data = torch.from_numpy(_corpus(kind, 60_000, 1).copy()).to(cuda)
-    keys, nb, k = round0_keys(data.to(torch.int64))
-    sorted0 = bwt_cuda.sort_keys(keys, nb, nb + 24)
-    _equal(sorted0, bwt_cuda.sort_keys_ref(keys, nb, nb + 24))
-    rank, active = bwt_cuda.rerank(sorted0, nb)
-    want_rank, want_active = bwt_cuda.rerank_ref(sorted0, nb)
+    # A batch of three blocks in one sort: round 0 and the first pair round,
+    # K1 and the slot-aware K2 against their plain versions.
+    ns = [60_000, 41_000, 3]
+    blocks = torch.from_numpy(np.stack([_corpus(kind, 60_000, 1 + i) for i in range(3)])).to(cuda)
+    nb = max(ns).bit_length()
+    lay = bwt.layout([0, 1, 2], ns, cuda)
+    offsets = lay.off.to(torch.int32)
+    keys, hi = bwt.round0_keys(blocks, lay, nb)
+    sorted0 = bwt_cuda.sort_keys(keys, nb, hi)
+    _equal(sorted0, bwt_cuda.sort_keys_ref(keys, nb, hi))
+    rank, active = bwt_cuda.rerank(sorted0, nb, nb + 24, offsets)
+    want_rank, want_active = bwt_cuda.rerank_ref(sorted0, nb, nb + 24, offsets)
     _equal(rank, want_rank)
     _equal(active, want_active)
-    keys1 = pair_keys(rank, k, nb)
-    sorted1 = bwt_cuda.sort_keys(keys1, nb, 3 * nb)
-    _equal(sorted1, bwt_cuda.sort_keys_ref(keys1, nb, 3 * nb))
-    for got, want in zip(bwt_cuda.rerank(sorted1, nb), bwt_cuda.rerank_ref(sorted1, nb)):
+    k = torch.tensor([3, 3, 1], device=cuda)
+    keys1, hi1 = bwt.pair_keys(rank, k, lay, nb)
+    sorted1 = bwt_cuda.sort_keys(keys1, nb, hi1)
+    _equal(sorted1, bwt_cuda.sort_keys_ref(keys1, nb, hi1))
+    for got, want in zip(bwt_cuda.rerank(sorted1, nb, 3 * nb, offsets),
+                         bwt_cuda.rerank_ref(sorted1, nb, 3 * nb, offsets)):
         _equal(got, want)
+
+
+def test_bwt_stage_sorts_once_per_round(cuda):
+    blocks = np.zeros((4, 20_000), np.uint8)
+    for i, kind in enumerate(("text", "runs", "random", "text")):
+        blocks[i] = _corpus(kind, 20_000, 41 + i)
+    blocks[3, :10_000] = blocks[3, 10_000:]  # a block that needs more rounds
+    ns = torch.tensor([20_000, 19_000, 20_000, 20_000], dtype=torch.int32)
+    per_block = []
+    for i in range(4):
+        bwt_cuda.LAUNCHES["bwt_sort"] = 0
+        bwt_stage(torch.from_numpy(blocks[i : i + 1]).to(cuda), ns[i : i + 1])
+        per_block.append(bwt_cuda.LAUNCHES["bwt_sort"])
+    bwt_cuda.LAUNCHES["bwt_sort"] = 0
+    got = bwt_stage(torch.from_numpy(blocks).to(cuda), ns.to(cuda))
+    assert bwt_cuda.LAUNCHES["bwt_sort"] == max(per_block) < sum(per_block)
+    for g, w in zip(got, bwt_stage(torch.from_numpy(blocks), ns)):
+        _equal(g.cpu(), w)
+
+
+def test_huffman_lengths_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    fib = [1, 1]
+    while len(fib) < 42:
+        fib.append(fib[-1] + fib[-2])
+    rows = [rng.integers(0, 1000, 258), np.full(258, 13), np.zeros(258, np.int64),
+            np.array(fib + [0] * 216), np.array([1 << k for k in range(30)] + [1] * 100 + [0] * 128)]
+    rows += list(rng.integers(0, 50, (43, 258)) ** 3)  # skewed rows: 48 in all
+    freqs = torch.from_numpy(np.stack(rows).astype(np.int64)).to(cuda)
+    alphas = torch.from_numpy(np.concatenate([[258, 258, 3, 42, 130], rng.integers(2, 259, 43)])).to(cuda)
+    launches = huffman_cuda.LAUNCHES["huffman_lengths"]
+    got = huffman_cuda.code_lengths(freqs, alphas)
+    assert huffman_cuda.LAUNCHES["huffman_lengths"] == launches + 1
+    _equal(got, huffman_cuda.code_lengths_ref(freqs, alphas))
+    assert int(got.max()) <= 17
 
 
 def test_sort_odd_bit_ranges_and_sizes(cuda):
     rng = np.random.default_rng(2)
-    # 1,000,003 keys: 62,720 digit counters, several chunks of the block scan.
-    for n, lo, hi in [(1, 0, 8), (4095, 3, 17), (4097, 0, 63), (100_001, 20, 61), (1_000_003, 0, 24)]:
+    # 7,200,000 keys over 43 bits: a level-9 pair round of 8 blocks.
+    for n, lo, hi in [(1, 0, 8), (4095, 3, 17), (4097, 0, 63), (100_001, 20, 61), (1_000_003, 0, 24),
+                      (7_200_000, 20, 63)]:
         keys = torch.from_numpy(rng.integers(0, 1 << 62, n)).to(cuda)
         _equal(bwt_cuda.sort_keys(keys, lo, hi), bwt_cuda.sort_keys_ref(keys, lo, hi))
 
@@ -153,10 +197,11 @@ def test_compress_device_intake_on_card_matches_cpu(cuda):
 
 def test_compress_on_card_matches_cpu_and_counts_launches(cuda):
     data = b"".join(_corpus(kind, 120_000, 11 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
-    for counts in (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES):
+    for counts in (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES):
         for name in counts:
             counts[name] = 0
     out = bz2tpu_torch.compress(data, level=1)
     assert min(bwt_cuda.LAUNCHES.values()) > 0 and mtf_cuda.LAUNCHES["mtf_ranks"] > 0
+    assert huffman_cuda.LAUNCHES["huffman_lengths"] > 0
     assert out == bz2tpu_torch.compress(data, level=1, device="cpu")
     assert stdlib_bz2.decompress(out) == data

@@ -12,7 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 from bz2tpu.ops import huffman as jax_huff  # noqa: E402
 from bz2tpu.oracle.encoder import bwt_encode as oracle_bwt  # noqa: E402
 from bz2tpu.oracle.encoder import mtf_rle2_encode as oracle_mtf  # noqa: E402
-from bz2tpu_torch.ops import huffman  # noqa: E402
+from bz2tpu_torch.ops import huffman, huffman_cuda  # noqa: E402
 
 from conftest import CORPUS_KINDS, make_corpus  # noqa: E402
 
@@ -43,6 +43,58 @@ def test_code_lengths_match_jax(rng):
     for i in range(freqs.shape[0]):
         want = jax_huff.code_lengths(jnp.asarray(freqs[i], jnp.int32), jnp.int32(alphas[i]))
         np.testing.assert_array_equal(got[i], np.asarray(want))
+
+
+def _cap_retries(row: np.ndarray, alpha: int) -> int:
+    """How often the depth cap flattens the row's weights."""
+    valid = np.arange(258) < alpha
+    w = torch.from_numpy(np.where(valid, np.maximum(row, 1), 0))[None]
+    a = torch.tensor([alpha])
+    n = 0
+    while int(huffman_cuda.huffman_depths(w, a).max()) > 17:
+        w = torch.where(torch.from_numpy(valid), 1 + (w >> 1), w)
+        n += 1
+    return n
+
+
+_FIB = [1, 1]
+while len(_FIB) < 42:
+    _FIB.append(_FIB[-1] + _FIB[-2])
+
+# (alpha, row, least number of cap retries): all-equal weights over the
+# whole alphabet, and two rows deep enough to need several flattenings.
+_CODE_LENGTH_CASES = {
+    "all-equal-258": (258, np.full(258, 13), 0),
+    "fibonacci-42": (42, np.array(_FIB + [0] * 216), 2),
+    "powers-of-two": (130, np.array([1 << k for k in range(30)] + [1] * 100 + [0] * 128), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(_CODE_LENGTH_CASES))
+def test_code_lengths_ref_cases_match_jax(case):
+    alpha, row, min_retries = _CODE_LENGTH_CASES[case]
+    row = row.astype(np.int64)
+    assert _cap_retries(row, alpha) >= min_retries
+    freqs = torch.from_numpy(np.stack([row, row[::-1].copy()]))
+    alphas = torch.tensor([alpha, 258])
+    got = huffman_cuda.code_lengths_ref(freqs, alphas)
+    # On the CPU the wrapper is the plain version.
+    np.testing.assert_array_equal(huffman.code_lengths(freqs, alphas).numpy(), got.numpy())
+    for i in range(2):
+        want = jax_huff.code_lengths(jnp.asarray(freqs[i].numpy(), jnp.int32), jnp.int32(alphas[i]))
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+    assert 1 <= int(got[0, :alpha].min()) and int(got.max()) <= 17
+
+
+def test_code_lengths_wrapper_checks_inputs():
+    freqs = torch.ones(3, 258, dtype=torch.int64)
+    alphas = torch.full((3,), 258)
+    with pytest.raises(ValueError):
+        huffman_cuda.code_lengths(freqs.to(torch.int32), alphas)
+    with pytest.raises(ValueError):
+        huffman_cuda.code_lengths(freqs[:, :100], alphas)
+    with pytest.raises(ValueError):
+        huffman_cuda.code_lengths(freqs, alphas[:2])
 
 
 def test_seed_lengths_match_jax(rng):

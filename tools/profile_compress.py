@@ -9,8 +9,9 @@ activity only. It sums the device time of every kernel and copy the
 profiler saw and prints one JSON object: the unprofiled and profiled
 walls, the number of device events, the device busy time and its share of
 the faster unprofiled wall, and the device time and launch count of the 25
-costliest kernel names. The launch count of K1's `exclusive_scan` is the
-number of radix-sort passes. Needs a CUDA card.
+costliest kernel names. The launch count of K1's `radix_upfront_histogram`
+is the number of sorts, that of its `radix_onesweep` the number of
+radix-sort passes. Needs a CUDA card.
 """
 
 from __future__ import annotations
