@@ -30,12 +30,12 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> (argtypes); every entry point returns a cudaError_t as int, the
-# *_scratch helpers return a scratch size in 32-bit words.
+# *_scratch and *_work helpers return a buffer size in 32-bit words.
 SIGNATURES = {
     "bz2t_radix_sort_scratch": (_I,),
     "bz2t_radix_sort_u64": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "bz2t_rerank_scratch": (_I,),
-    "bz2t_rerank": (_P, _I, _I, _I, _P, _I, _P, _P, _P, _P),
+    "bz2t_rerank_work": (_I, _I),
+    "bz2t_rerank": (_P, _I, _I, _I, _P, _I, _P, _P, _P),
     "bz2t_mtf_scratch": (_I, _I, _I),
     "bz2t_mtf_ranks": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
     "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _P, _P),

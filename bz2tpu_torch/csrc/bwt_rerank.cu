@@ -1,5 +1,5 @@
 // K2: group re-rank of sorted BWT keys, fused with the inverse permutation,
-// for every block of a batch at once.
+// for every block of a batch at once, in one pass over the keys.
 //
 // Replaces rerank_pallas (bz2tpu/ops/bwt_pallas.py:242-288) AND the third
 // bitonic sort of every doubling round (its inverse-permutation use,
@@ -13,12 +13,31 @@
 // change is a group change, so a block's groups never reach into another's.
 // active[slot] counts the slot's positions in groups of size >= 2.
 //
-// Bound on this card: device-memory traffic, ~3 reads of the keys plus one
-// scattered int32 write per position. The TPU kernel walks its tiles in
-// order with the running max carried in SMEM; CUDA blocks run in no order,
-// so the carry becomes three launches: per-tile maxima and per-slot counts,
-// a one-block scan of the tile maxima, then the per-element scan and
-// scatter. The counts are integer atomic sums and therefore deterministic.
+// Bound on this card: device-memory traffic, the keys read once (8 bytes a
+// position) and one int32 written a position. The write is a scatter (the
+// inverse permutation): 4 bytes into a 32-byte sector of the block's slice
+// of `rank`, which the L2 cache holds, and the rate at which L2 takes such
+// sectors, not the bytes, is what the kernel runs at; everything else is
+// arranged to overlap with it. The TPU kernel walks its tiles in order
+// with the running max carried in SMEM; CUDA blocks run in no order, so
+// the carry between tiles is a decoupled look-back inside ONE kernel:
+//   * a CTA takes its tile id from an atomic counter, so every smaller id
+//     belongs to a CTA already running and the look-back cannot deadlock;
+//   * it loads its tile once, coalesced, into shared memory with one key of
+//     halo on each side; heads, ties and the in-tile running max (a ballot
+//     and a count of leading zeros per 32 positions, then a scan over the
+//     tile's 32-position segments) all come from there;
+//   * it publishes one status word (flag in the top two bits, last head
+//     position + 1 below, 0 for "no head here") and reads its predecessors'
+//     32 at a time until it meets an inclusive one. Head positions grow
+//     with the tile id, so a tile that holds a head knows its inclusive
+//     value without looking back and publishes it at once; only a tile
+//     inside a group of equal keys waits for the carry before it can;
+//   * the positions at or after the tile's first head need no carry: their
+//     stores go out first, and warp 0 looks back while they are in flight.
+//     Only the positions before the first head wait for it.
+// The per-slot counts go through shared counters to one global atomic a
+// slot a CTA: integer sums, so deterministic.
 #include "common.cuh"
 
 namespace {
@@ -26,131 +45,210 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
-constexpr int kMaxSlots = 64;  // bz2tpu_torch/ops/bwt.py MAX_SLOTS
+constexpr int kSegs = kTile / 32;  // 32-position segments of a tile
+constexpr int kPer = kSegs / 32;   // segments a lane of warp 0 scans
+constexpr int kMaxSlots = 64;      // bz2tpu_torch/ops/bwt.py MAX_SLOTS
+static_assert(kPer * 32 == kSegs, "warp 0 scans the segments, kPer a lane");
 
-__device__ __forceinline__ bool is_head(const u64* __restrict__ keys, int i,
-                                        int gshift, u64 g) {
-  return i == 0 || (keys[i - 1] >> gshift) != g;
-}
-
-// Per tile: the last head position, and per slot the positions in groups
-// of size >= 2 (added to active[slot]).
-__global__ void rerank_tiles(const u64* __restrict__ keys, int n, int gshift, int slot_shift,
-                             int n_slots, int* __restrict__ tile_max, int* __restrict__ active) {
-  __shared__ int s_max[kWarps];
-  __shared__ int s_active[kMaxSlots];
-  for (int s = threadIdx.x; s < n_slots; s += kThreads) s_active[s] = 0;
-  __syncthreads();
-  const int tile = blockIdx.x * kTile;
-  int mx = -1;
-  int slot = -1;  // the slot `tied` counts for
-  int tied = 0;
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int i = tile + j;
-    if (i >= n) break;
-    const u64 key = keys[i];
-    const u64 g = key >> gshift;
-    const bool head = is_head(keys, i, gshift, g);
-    const bool next_head = i == n - 1 || (keys[i + 1] >> gshift) != g;
-    if (head) mx = i;
-    if (!(head && next_head)) {
-      const int s = (int)(key >> slot_shift);
-      if (s != slot) {
-        if (tied) atomicAdd(&s_active[slot], tied);
-        slot = s;
-        tied = 0;
-      }
-      ++tied;
+// The last head position of all tiles before `tile` (>= 1): the statuses of
+// 32 predecessors a step, nearest first, up to the first inclusive one.
+// Tile 0 holds position 0, a head, so the walk ends there at the latest.
+__device__ __forceinline__ int look_back(const u32* status, int tile, int lane) {
+  int carry = -1;
+  for (int hi = tile - 1;; hi -= 32) {
+    const int p = hi - lane;
+    u32 s, inclusive;
+    for (;;) {
+      s = p >= 0 ? load_status(status + p) : kInclusive;
+      inclusive = __ballot_sync(BZ2T_FULL_MASK, (s >> 30) == 2u);
+      const u32 ready = __ballot_sync(BZ2T_FULL_MASK, (s >> 30) != 0u);
+      // Every predecessor up to the nearest inclusive one has published.
+      const u32 needed = inclusive ? ((inclusive & (0u - inclusive)) << 1) - 1u : 0xffffffffu;
+      if ((ready & needed) == needed) break;
     }
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    const int v = lane <= stop ? (int)(s & kValue) - 1 : -1;
+    carry = max(carry, __reduce_max_sync(BZ2T_FULL_MASK, v));
+    if (inclusive) return carry;
   }
-  if (tied) atomicAdd(&s_active[slot], tied);
-  for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_xor_sync(BZ2T_FULL_MASK, mx, o));
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) s_max[warp] = mx;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int m = -1;
-    for (int w = 0; w < kWarps; ++w) m = max(m, s_max[w]);
-    tile_max[blockIdx.x] = m;
-  }
-  for (int s = threadIdx.x; s < n_slots; s += kThreads)
-    if (s_active[s]) atomicAdd(&active[s], s_active[s]);
 }
 
-// One block: tile_max becomes its exclusive running max (the carry into
-// each tile).
-__global__ void rerank_scan(int* __restrict__ tile_max, int n_tiles) {
-  block_exclusive_scan<kScanThreads, 8>(tile_max, n_tiles, -1, MaxOp());
-}
-
-// Per element: pos = max(carry into the tile, in-tile inclusive running
-// max of head positions); rank[off + order] = pos - off. Thread t owns
-// kItems consecutive positions; a warp shuffle scan plus a pass over the
-// warp totals gives each thread the running max before its first item.
-__global__ void rerank_scatter(const u64* __restrict__ keys, int n, int gshift,
-                               u64 idx_mask, int slot_shift, const int* __restrict__ offsets,
-                               const int* __restrict__ tile_prefix, int* __restrict__ rank) {
-  __shared__ int s_warp[kWarps];
+__global__ void __launch_bounds__(kThreads)
+rerank_onepass(const u64* __restrict__ keys, int n, int gshift, u64 idx_mask, int slot_shift,
+               const int* __restrict__ offsets, int n_slots, int* __restrict__ rank,
+               int* __restrict__ active, u32* __restrict__ tile_counter,
+               u32* __restrict__ status) {
+  // The tile sits at s_key[0, kTile), the key before it at s_key[-1], the
+  // key after it at s_key[len]; s_key is 16-byte aligned.
+  __shared__ __align__(16) u64 s_raw[kTile + 4];
+  __shared__ int s_seg[kSegs];  // per segment: its last head, then the last head before it in the tile
+  __shared__ int s_off[kMaxSlots];
+  __shared__ int s_active[kMaxSlots];
+  __shared__ u32 s_tile;
+  __shared__ int s_carry;  // the tile's last head, then the last head before the tile
+  u64* s_key = s_raw + 2;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int first = blockIdx.x * kTile + t * kItems;
-  int pos[kItems];
-  int off[kItems];
-  u32 order[kItems];
-  int run = -1;
+  if (t == 0) s_tile = atomicAdd(tile_counter, 1u);
+  if (t < n_slots) {
+    s_off[t] = offsets[t];
+    s_active[t] = 0;
+  }
+  __syncthreads();
+  const int tile = (int)s_tile;
+  const int base = tile * kTile;
+  const int len = min(kTile, n - base);
+
+  if ((reinterpret_cast<uintptr_t>(keys) & 15u) == 0) {
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(keys + base);
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(s_key);
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = first + k;
-    pos[k] = -1;
-    off[k] = 0;
-    order[k] = 0;
-    if (i < n) {
-      const u64 key = keys[i];
-      if (is_head(keys, i, gshift, key >> gshift)) run = i;
-      pos[k] = run;
-      off[k] = offsets[key >> slot_shift];
-      order[k] = (u32)(key & idx_mask);
+    for (int k = 0; k < kItems / 2; ++k) {
+      const int j = k * kThreads + t;
+      if (2 * j + 1 < len) dst[j] = src[j];
+      else if (2 * j < len) s_key[2 * j] = keys[base + 2 * j];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int j = k * kThreads + t;
+      if (j < len) s_key[j] = keys[base + j];
     }
   }
-  int incl = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(BZ2T_FULL_MASK, incl, o);
-    if (lane >= o) incl = max(incl, v);
-  }
-  if (lane == 31) s_warp[warp] = incl;
+  if (t == 0 && base > 0) s_key[-1] = keys[base - 1];
+  if (t == 32 && base + len < n) s_key[len] = keys[base + len];
   __syncthreads();
-  int before = tile_prefix[blockIdx.x];
-  for (int w = 0; w < warp; ++w) before = max(before, s_warp[w]);
-  const int prev_lanes = __shfl_up_sync(BZ2T_FULL_MASK, incl, 1);
-  if (lane > 0) before = max(before, prev_lanes);
+
+  // Item k of thread t is position k * kThreads + t of the tile: a warp
+  // holds 32 consecutive positions, one segment, per item.
+  u64 key[kItems];
+  int pos[kItems];  // the last head at or before the position within its segment, or -1
 #pragma unroll
-  for (int k = 0; k < kItems; ++k)
-    if (first + k < n) rank[off[k] + order[k]] = max(before, pos[k]) - off[k];
+  for (int k = 0; k < kItems; ++k) {
+    const int j = k * kThreads + t;
+    const int i = base + j;
+    const bool valid = j < len;
+    key[k] = valid ? s_key[j] : 0ull;
+    const u64 g = key[k] >> gshift;
+    const bool head = valid && (i == 0 || (s_key[j - 1] >> gshift) != g);
+    const bool next_head = i == n - 1 || (s_key[j + 1] >> gshift) != g;
+    const u32 heads = __ballot_sync(BZ2T_FULL_MASK, head);
+    const u32 below = heads & (0xffffffffu >> (31 - lane));
+    pos[k] = below ? i - lane + 31 - __clz(below) : -1;
+    if (lane == 31) s_seg[j >> 5] = pos[k];
+    // Positions in groups of size >= 2, counted per slot: one shared
+    // atomic a warp where the 32 positions share a slot (all but the
+    // segments that straddle a block boundary).
+    const bool tied = valid && !(head && next_head);
+    const u32 ties = __ballot_sync(BZ2T_FULL_MASK, tied);
+    if (ties) {
+      const int slot = (int)(key[k] >> slot_shift);
+      const int lead = __ffs(ties) - 1;
+      const int lead_slot = __shfl_sync(BZ2T_FULL_MASK, slot, lead);
+      if (__all_sync(BZ2T_FULL_MASK, !tied || slot == lead_slot)) {
+        if (lane == lead) atomicAdd(&s_active[lead_slot], __popc(ties));
+      } else if (tied) {
+        atomicAdd(&s_active[slot], 1);
+      }
+    }
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // Exclusive running max over the tile's segments, kPer a lane; the
+    // status word goes out before anything waits.
+    int v[kPer];
+    int incl = -1;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      v[q] = s_seg[kPer * lane + q];
+      incl = max(incl, v[q]);
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(BZ2T_FULL_MASK, incl, o);
+      if (lane >= o) incl = max(incl, x);
+    }
+    int run = __shfl_up_sync(BZ2T_FULL_MASK, incl, 1);
+    if (lane == 0) run = -1;
+    const int last_head = __shfl_sync(BZ2T_FULL_MASK, incl, 31);  // -1: no head in the tile
+    if (lane == 0) {
+      s_carry = last_head;
+      store_status(status + tile, tile == 0 || last_head >= 0 ? (kInclusive | (u32)(last_head + 1))
+                                                             : kAggregate);
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      s_seg[kPer * lane + q] = run;
+      run = max(run, v[q]);
+    }
+  }
+  __syncthreads();
+  const int last_head = s_carry;
+
+  // Positions at or after the tile's first head have their rank now; the
+  // few before it (all of them in a tile inside one long group) wait for
+  // the carry, which warp 0 fetches while the other stores are in flight.
+  u32 waiting = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int j = k * kThreads + t;
+    if (j < len) {
+      const int p = pos[k] >= 0 ? pos[k] : s_seg[j >> 5];
+      if (p >= 0) {
+        const int off = s_off[key[k] >> slot_shift];
+        rank[off + (int)(key[k] & idx_mask)] = p - off;
+      } else {
+        waiting |= 1u << k;
+      }
+    }
+  }
+  if (t < n_slots && s_active[t]) atomicAdd(&active[t], s_active[t]);
+  if (tile == 0) return;  // position 0 is a head: nothing waits
+  __syncthreads();  // s_carry was read
+  if (warp == 0) {
+    const int carry = look_back(status, tile, lane);
+    if (lane == 0) {
+      s_carry = carry;
+      if (last_head < 0) store_status(status + tile, kInclusive | (u32)(carry + 1));
+    }
+  }
+  __syncthreads();
+  if (waiting) {
+    const int carry = s_carry;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (waiting >> k & 1u) {
+        const int off = s_off[key[k] >> slot_shift];
+        rank[off + (int)(key[k] & idx_mask)] = carry - off;
+      }
+    }
+  }
 }
+
+int tiles(int n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace
 
-extern "C" int bz2t_rerank_scratch(int n) { return (n + kTile - 1) / kTile; }
+// Work words for n keys in n_slots slots: the per-slot active counts (the
+// kernel's second output), then the tile counter and one status word a tile.
+extern "C" int bz2t_rerank_work(int n, int n_slots) { return n_slots + 1 + tiles(n); }
 
-// keys: n sorted packed keys (group bits above idx_bits, the slot from
-// slot_shift up); offsets: n_slots int32 slot starts (the slot ranges tile
-// 0..n in order); rank: n int32 outputs; active: n_slots int32 outputs;
-// scratch: bz2t_rerank_scratch(n) ints.
+// keys: n < 2^30 sorted packed keys (group bits above idx_bits, the slot
+// from slot_shift up); offsets: n_slots int32 slot starts (the slot ranges
+// tile 0..n in order); rank: n int32 outputs; work: bz2t_rerank_work(n,
+// n_slots) words, whose first n_slots are the active counts on return.
 extern "C" int bz2t_rerank(const u64* keys, int n, int idx_bits, int slot_shift,
-                           const int* offsets, int n_slots, int* rank, int* active,
-                           int* scratch, cudaStream_t stream) {
-  if (n_slots < 1 || n_slots > kMaxSlots) return (int)cudaErrorInvalidValue;
-  cudaMemsetAsync(active, 0, sizeof(int) * (size_t)n_slots, stream);
+                           const int* offsets, int n_slots, int* rank, u32* work,
+                           cudaStream_t stream) {
+  if (n_slots < 1 || n_slots > kMaxSlots || n > (int)kValue) return (int)cudaErrorInvalidValue;
+  const int n_tiles = n > 0 ? tiles(n) : 0;
+  cudaMemsetAsync(work, 0, sizeof(u32) * (size_t)(n_slots + 1 + n_tiles), stream);
   if (n <= 0) return (int)cudaGetLastError();
-  const int n_tiles = (n + kTile - 1) / kTile;
-  int* tile_max = scratch;
-  rerank_tiles<<<n_tiles, kThreads, 0, stream>>>(keys, n, idx_bits, slot_shift, n_slots,
-                                                 tile_max, active);
-  rerank_scan<<<1, kScanThreads, 0, stream>>>(tile_max, n_tiles);
-  rerank_scatter<<<n_tiles, kThreads, 0, stream>>>(
-      keys, n, idx_bits, (1ull << idx_bits) - 1ull, slot_shift, offsets, tile_max, rank);
+  int* active = reinterpret_cast<int*>(work);
+  u32* counter = work + n_slots;
+  rerank_onepass<<<n_tiles, kThreads, 0, stream>>>(
+      keys, n, idx_bits, (1ull << idx_bits) - 1ull, slot_shift, offsets, n_slots, rank, active,
+      counter, counter + 1);
   return (int)cudaGetLastError();
 }

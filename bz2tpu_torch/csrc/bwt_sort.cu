@@ -51,11 +51,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPasses = (63 + kBits - 1) / kBits;
 constexpr int kHistBlocks = 264;  // two CTAs an SM for the upfront histogram
 
-// A status word: flag in the top two bits, a count below (< 2^30 keys).
-constexpr u32 kAggregate = 1u << 30;
-constexpr u32 kInclusive = 2u << 30;
-constexpr u32 kValue = (1u << 30) - 1u;
-
 __device__ __forceinline__ u32 digit_mask(int lo_bit, int hi_bit, int pass) {
   const int bits = min(kBits, hi_bit - (lo_bit + kBits * pass));
   return (1u << bits) - 1u;
@@ -82,14 +77,6 @@ radix_upfront_histogram(const u64* __restrict__ keys, int n, int lo_bit, int hi_
     const u32 c = cnt[p][threadIdx.x];
     if (c) atomicAdd(&hist[p * kRadix + threadIdx.x], c);
   }
-}
-
-__device__ __forceinline__ u32 load_status(const u32* p) {
-  return *reinterpret_cast<const volatile u32*>(p);
-}
-
-__device__ __forceinline__ void store_status(u32* p, u32 v) {
-  *reinterpret_cast<volatile u32*>(p) = v;
 }
 
 // Exclusive sum over the block of one value per thread (kThreads ==

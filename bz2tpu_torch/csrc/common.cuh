@@ -15,74 +15,19 @@ typedef unsigned int u32;
 
 #define BZ2T_FULL_MASK 0xffffffffu
 
-struct SumOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
-};
+// A status word of a single-pass scan with decoupled look-back (K1's
+// digit offsets, K2's running max): a tile publishes its own aggregate,
+// then the inclusive prefix over all tiles up to it; the flag sits in the
+// top two bits (0: nothing yet), a value below 2^30 under it. One 32-bit
+// word carries both, so a volatile access is all the ordering it needs.
+constexpr u32 kAggregate = 1u << 30;
+constexpr u32 kInclusive = 2u << 30;
+constexpr u32 kValue = (1u << 30) - 1u;
 
-struct MaxOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return a > b ? a : b; }
-};
+__device__ __forceinline__ u32 load_status(const u32* p) {
+  return *reinterpret_cast<const volatile u32*>(p);
+}
 
-// In-place exclusive scan of data[0, len) under `op` (SumOp, MaxOp) with
-// identity `id`, run by ONE block of kThreads threads. The array is walked
-// in chunks of kThreads * kPer: a coalesced load into shared memory, each
-// thread folds kPer consecutive elements, a warp shuffle scan plus the
-// chunk's warp totals gives each thread its exclusive prefix, the thread
-// writes its run's prefixes back, and a coalesced store follows; the chunk
-// total is carried into the next chunk. A scan this small is bound by the
-// latency of its serial chunks, so the chunks are wide. Shared indices
-// are padded by one word per 32 so that neither access pattern conflicts.
-__device__ __forceinline__ int padded(int k) { return k + (k >> 5); }
-
-template <int kThreads, int kPer, typename T, typename Op>
-__device__ void block_exclusive_scan(T* __restrict__ data, int len, T id, Op op) {
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kChunk = kThreads * kPer;
-  __shared__ T tile[kChunk + kChunk / 32];
-  __shared__ T warp_total[kWarps];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  T carry = id;
-  for (int base = 0; base < len; base += kChunk) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = base + j * kThreads + t;
-      tile[padded(j * kThreads + t)] = i < len ? data[i] : id;
-    }
-    __syncthreads();
-    T incl = id;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) incl = op(incl, tile[padded(t * kPer + j)]);
-    for (int o = 1; o < 32; o <<= 1) {
-      const T v = __shfl_up_sync(BZ2T_FULL_MASK, incl, o);
-      if (lane >= o) incl = op(v, incl);
-    }
-    const T excl_in_warp = __shfl_up_sync(BZ2T_FULL_MASK, incl, 1);
-    if (lane == 31) warp_total[warp] = incl;
-    __syncthreads();
-    T before = carry;
-    T total = carry;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w == warp) before = total;
-      total = op(total, warp_total[w]);
-    }
-    T run = lane > 0 ? op(before, excl_in_warp) : before;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const T v = tile[padded(t * kPer + j)];
-      tile[padded(t * kPer + j)] = run;
-      run = op(run, v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = base + j * kThreads + t;
-      if (i < len) data[i] = tile[padded(j * kThreads + t)];
-    }
-    carry = total;
-    __syncthreads();  // tile and warp_total are rewritten by the next chunk
-  }
+__device__ __forceinline__ void store_status(u32* p, u32 v) {
+  *reinterpret_cast<volatile u32*>(p) = v;
 }

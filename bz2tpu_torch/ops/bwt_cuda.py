@@ -11,7 +11,8 @@ ops/bwt.py), so
   * ``rerank`` (K2, csrc/bwt_rerank.cu) finds group heads, takes the
     running max of head positions and scatters them back to index order,
     block by block (rerank_pallas plus the inverse-permutation sort it was
-    paired with).
+    paired with), in one kernel that reads the keys once: the carry
+    between tiles is a decoupled look-back over one status word a tile.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -26,6 +27,7 @@ from bz2tpu_torch import _build
 # Kernel launches by wrapper (reset to 0 to count one run).
 LAUNCHES = {"bwt_sort": 0, "bwt_rerank": 0}
 MAX_SLOTS = 64  # K2's per-slot counters (csrc/bwt_rerank.cu kMaxSlots)
+MAX_KEYS = (1 << 30) - 1  # a count or position fits a status word's 30 value bits
 
 
 def _check_keys(keys: torch.Tensor) -> None:
@@ -34,6 +36,8 @@ def _check_keys(keys: torch.Tensor) -> None:
             f"keys must be a contiguous 1-D int64 tensor, got {keys.dtype} "
             f"{tuple(keys.shape)}"
         )
+    if keys.numel() > MAX_KEYS:
+        raise ValueError(f"at most 2^30 - 1 keys, got {keys.numel()}")
     if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {keys.device}")
 
@@ -57,8 +61,6 @@ def sort_keys(keys: torch.Tensor, lo_bit: int, hi_bit: int) -> torch.Tensor:
     _check_keys(keys)
     if not 0 <= lo_bit < hi_bit <= 63:
         raise ValueError(f"bit range [{lo_bit}, {hi_bit}) empty or outside [0, 63)")
-    if keys.numel() >= 1 << 30:
-        raise ValueError(f"at most 2^30 - 1 keys, got {keys.numel()}")
     if keys.device.type == "cpu":
         return sort_keys_ref(keys, lo_bit, hi_bit)
     lib = _build.lib()
@@ -136,13 +138,15 @@ def rerank(
     lib = _build.lib()
     n = keys.numel()
     rank = torch.empty(n, dtype=torch.int32, device=keys.device)
-    active = torch.empty(offsets.numel(), dtype=torch.int32, device=keys.device)
-    scratch = torch.empty(lib.bz2t_rerank_scratch(n), dtype=torch.int32, device=keys.device)
+    n_slots = offsets.numel()
+    # The active counts head the kernel's work buffer (then its tile counter
+    # and status words), so that one memset clears all of it.
+    work = torch.empty(lib.bz2t_rerank_work(n, n_slots), dtype=torch.int32, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     err = lib.bz2t_rerank(
-        keys.data_ptr(), n, idx_bits, slot_shift, offsets.data_ptr(), offsets.numel(),
-        rank.data_ptr(), active.data_ptr(), scratch.data_ptr(), stream,
+        keys.data_ptr(), n, idx_bits, slot_shift, offsets.data_ptr(), n_slots,
+        rank.data_ptr(), work.data_ptr(), stream,
     )
     _build.check(err, "bwt_rerank")
     LAUNCHES["bwt_rerank"] += 1
-    return rank, active
+    return rank, work[:n_slots]

@@ -6,6 +6,12 @@ rank of position t is the number of lanes whose last occurrence before t
 is later than that of t's own symbol, with never-seen lanes at virtual
 times -(lane + 1) (the initial list order) and unused lanes far below.
 
+On the card a warp owns a chunk of ``chunk`` positions and 16 consecutive
+chunks form a segment (one CTA); the list each chunk starts from comes
+from a parallel max-scan over the segments' last-occurrence vectors, and
+only segments below each block's m get work. The ranks do not depend on
+``chunk``.
+
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
 """
@@ -16,7 +22,8 @@ import torch
 
 from bz2tpu_torch import _build
 
-CHUNK = 2048  # positions per (block, chunk) slot, as the TPU kernel's tile
+CHUNK = 256  # positions a warp ranks in series (the TPU kernel's tile is 2048)
+MAX_BATCH = 8192  # the kernel keeps one int a block in shared memory
 _NEG = -(1 << 30)
 
 # Kernel launches by wrapper (reset to 0 to count one run).
@@ -72,12 +79,17 @@ def mtf_ranks(
         return mtf_ranks_ref(seq, n_in_use, m, chunk)
     if seq.device.type != "cuda":
         raise ValueError(f"unsupported device {seq.device}")
+    if B > MAX_BATCH or seq.shape[1] >= 1 << 30:
+        raise ValueError(f"at most {MAX_BATCH} blocks of fewer than 2^30 positions, got {tuple(seq.shape)}")
     lib = _build.lib()
     cap = seq.shape[1]
     n_in_use = n_in_use.contiguous()
     m = m.contiguous()
     ranks = torch.empty_like(seq)
-    scratch = torch.empty(lib.bz2t_mtf_scratch(B, cap, chunk), dtype=torch.int32, device=seq.device)
+    words = lib.bz2t_mtf_scratch(B, cap, chunk)
+    if words < 0:
+        raise ValueError(f"chunk {chunk} needs more than 2^31 scratch words for {B} blocks of {cap}")
+    scratch = torch.empty(words, dtype=torch.int32, device=seq.device)
     stream = torch.cuda.current_stream(seq.device).cuda_stream
     err = lib.bz2t_mtf_ranks(
         seq.data_ptr(), n_in_use.data_ptr(), m.data_ptr(), B, cap, chunk,

@@ -8,11 +8,16 @@ Phases (any failure exits non-zero; nothing is caught):
   2. each CUDA kernel against its plain torch version on the card, at the
      main path's shapes: the corpus's first batch of 8 level-9 blocks for
      the BWT sort (all blocks in one sort, against a stable torch.sort of
-     the same bit field too) and the slot-aware re-rank, the MTF ranks of
-     that batch, and the Huffman code lengths of its first refinement
-     iteration (48 table rows): results must be exactly equal (integer
-     codec, tolerance 0), all timed with CUDA events;
-  3. the main path: bz2tpu_torch.compress(level=9) on a 16 MB mixed corpus,
+     the same bit field too) and the slot-aware re-rank (round 0 and the
+     pair round, with the time of a bare scatter to the same destinations
+     beside it), the MTF ranks of that batch (at the default chunk length
+     and at 2,048, then timed over a sweep of chunk lengths), and the
+     Huffman code lengths of its first refinement iteration (48 table
+     rows): results must be exactly equal (integer codec, tolerance 0), all
+     timed with CUDA events;
+  3. the main path: bz2tpu_torch.compress(level=9) on a 16 MB mixed corpus
+     (bz2tpu_torch.utils.corpus; the run says how much of its real-text
+     part came from installed files and how much from the Markov fallback),
      decoded by stdlib bz2 and by bz2tpu_torch.decompress, with every kernel
      launched, and the BWT sort once per doubling round of each batch (the
      count each batch's slowest block needs alone), not once per block and
@@ -140,13 +145,13 @@ def main() -> int:
         return 1
     import numpy as np
 
-    import bench
     import bz2tpu_torch
     from bz2tpu_torch import _build
     from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda
     from bz2tpu_torch.ops.pipeline import encode_batch
     from bz2tpu_torch.runtime import device_decode
     from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH, HAVE_NATIVE, _batch_tensors, split_blocks
+    from bz2tpu_torch.utils.corpus import make_mixed_corpus, real_text_split
     from bz2tpu_torch.utils.device import gpu_name_and_power_limit
 
     dev = torch.device("cuda")
@@ -161,7 +166,10 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0:.3f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
 
-    corpus = bench.make_mixed_corpus(CORPUS_BYTES)
+    corpus = make_mixed_corpus(CORPUS_BYTES)
+    from_files, from_markov = real_text_split(CORPUS_BYTES)
+    print(f"corpus: {len(corpus)} B, its real-text part {from_files} B from installed files, "
+          f"{from_markov} B of Markov fallback")
     # -- 2. kernels against their plain versions at main-path shapes -------
     blocks = split_blocks(corpus, LEVEL)
     batch = blocks[:DEFAULT_BATCH]
@@ -195,12 +203,34 @@ def main() -> int:
     stats["bwt_rerank"] = compare(
         "bwt_rerank", lambda: bwt_cuda.rerank(sorted1, nb, 3 * nb, offsets),
         lambda: bwt_cuda.rerank_ref(sorted1, nb, 3 * nb, offsets), 10, nbytes=12 * total)
+    # What the scatter at the end of the re-rank costs alone: one torch call
+    # that writes an int32 to each of the pair round's destinations.
+    dest = offsets.long()[sorted1 >> (3 * nb)] + (sorted1 & ((1 << nb) - 1))
+    src, scattered = torch.arange(total, dtype=torch.int32, device=dev), torch.empty(total, dtype=torch.int32, device=dev)
+    print(f"scatter yardstick: index_copy_ of {total} int32 to bwt_rerank's destinations "
+          f"{cuda_ms(lambda: scattered.index_copy_(0, dest, src), 10):.4f} ms")
+    del dest, src, scattered
     last, _ = bwt.bwt_stage(blocks_t, ns)
     cseq, _, m, _, n_in_use = mtf.collapse(last, ns)
     print(f"MTF collapsed lengths m={m.tolist()}")
+    # Its bytes: the live symbols read, the whole (B, cap) rank array
+    # written (zeros at and past m); its operations: one compare and one
+    # add per position and list lane in use.
+    mtf_bytes = 4 * int(m.sum()) + 4 * cseq.numel() + 8 * m.numel()
+    mtf_ops = 2 * int((m.long() * n_in_use.long()).sum())
     stats["mtf_ranks"] = compare(
         "mtf_ranks", lambda: mtf_cuda.mtf_ranks(cseq, n_in_use, m), lambda: mtf_cuda.mtf_ranks_ref(cseq, n_in_use, m),
-        3, nbytes=8 * int(m.sum()), ops=int((m.long() * n_in_use.long()).sum()))
+        3, nbytes=mtf_bytes, ops=mtf_ops)
+    compare("mtf_ranks_chunk2048", lambda: mtf_cuda.mtf_ranks(cseq, n_in_use, m, 2048),
+            lambda: mtf_cuda.mtf_ranks_ref(cseq, n_in_use, m, 2048), 3, nbytes=mtf_bytes, ops=mtf_ops)
+    want_ranks = mtf_cuda.mtf_ranks_ref(cseq, n_in_use, m, 2048)
+    sweep = {}
+    for chunk in (32, 64, 128, 256, 512, 1024, 2048, 4096):
+        if max_abs_err(mtf_cuda.mtf_ranks(cseq, n_in_use, m, chunk), want_ranks) != 0:
+            raise AssertionError(f"mtf_ranks at chunk {chunk} disagrees with its plain version")
+        sweep[chunk] = round(cuda_ms(lambda: mtf_cuda.mtf_ranks(cseq, n_in_use, m, chunk), 10), 4)
+    print(f"mtf_ranks by chunk length (ms, default {mtf_cuda.CHUNK}): {sweep}")
+    del want_ranks
     # The code-length rows of the batch's first refinement iteration, as
     # the main path hands them to the kernel.
     rows = []

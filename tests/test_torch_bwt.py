@@ -264,3 +264,41 @@ def test_rerank_ref_with_slots_matches_per_block(rng):
     np.testing.assert_array_equal(active.numpy(), [int(a) for _, a in per_block])
     with pytest.raises(ValueError):
         bwt_cuda.rerank(torch.from_numpy(np.concatenate(keys)), nb, 30, offsets.long())
+
+
+def _slot_case(rng, case):
+    """Per slot, the sorted group column of its positions."""
+    if case == "one-group-spans-a-block":
+        return [np.sort(rng.integers(0, 50, 300)), np.zeros(500, np.int64), np.sort(rng.integers(0, 9, 200))]
+    if case == "all-groups-distinct":
+        return [np.arange(400, dtype=np.int64), np.arange(7, dtype=np.int64) * 3, np.arange(450, dtype=np.int64)]
+    ns = rng.integers(1, 500, 64)
+    ns[[0, 31, 63]] = [1, 2, 1]
+    return [np.sort(rng.integers(0, n // 3 + 1, n)) for n in ns]
+
+
+@pytest.mark.parametrize("case", ["one-group-spans-a-block", "all-groups-distinct", "64-slots-of-unequal-lengths"])
+def test_rerank_ref_with_slots_matches_pallas_per_block(rng, case):
+    groups = _slot_case(rng, case)
+    nb, slot_shift = 9, 40
+    orders = [rng.permutation(g.size) for g in groups]
+    keys = np.concatenate([(s << slot_shift) | (g << nb) | o for s, (g, o) in enumerate(zip(groups, orders))])
+    starts = np.concatenate([[0], np.cumsum([g.size for g in groups])[:-1]])
+    rank, active = bwt_cuda.rerank(
+        torch.from_numpy(keys), nb, slot_shift, torch.from_numpy(starts.astype(np.int32)))
+    for s, (g, o) in enumerate(zip(groups, orders)):
+        pos, act = rerank_pallas((jnp.asarray(g.astype(np.int32)),), tile=512, interpret=True)
+        # The kernel's ranks are in index order: rank[order[i]] = pos[i].
+        np.testing.assert_array_equal(rank.numpy()[starts[s] + o], np.asarray(pos))
+        assert int(active[s]) == int(act)
+
+
+def test_wrappers_refuse_2_to_the_30_keys():
+    # A shape-only tensor: the argument check comes before any work.
+    keys = torch.empty(1 << 30, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match=r"2\^30 - 1 keys"):
+        bwt_cuda.rerank(keys, 31)
+    with pytest.raises(ValueError, match=r"2\^30 - 1 keys"):
+        bwt_cuda.sort_keys(keys, 0, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bwt_cuda.rerank(keys[: (1 << 30) - 1], 31)

@@ -116,15 +116,75 @@ def test_sort_odd_bit_ranges_and_sizes(cuda):
         _equal(bwt_cuda.sort_keys(keys, lo, hi), bwt_cuda.sort_keys_ref(keys, lo, hi))
 
 
+def _rerank_twice(keys, idx_bits, slot_shift=63, offsets=None):
+    """K2 against its plain version, twice on the same inputs: the second
+    call finds nothing of the first one's look-back left behind."""
+    want = bwt_cuda.rerank_ref(keys, idx_bits, slot_shift, offsets)
+    for _ in range(2):
+        for got, w in zip(bwt_cuda.rerank(keys, idx_bits, slot_shift, offsets), want):
+            _equal(got, w)
+
+
 def test_rerank_over_many_scan_chunks(cuda):
-    # 2^24 + 5 positions: 8,193 tiles of maxima, more than one chunk of
-    # the block scan.
+    # 2^24 + 5 positions: 8,193 tiles, each behind the look-back of the
+    # ones before it.
     n, idx_bits = (1 << 24) + 5, 25
     gen = torch.Generator(device=cuda).manual_seed(4)
     groups = torch.sort(torch.randint(0, n // 3, (n,), device=cuda, generator=gen)).values
     keys = (groups << idx_bits) | torch.randperm(n, device=cuda, generator=gen)
-    for got, want in zip(bwt_cuda.rerank(keys, idx_bits), bwt_cuda.rerank_ref(keys, idx_bits)):
-        _equal(got, want)
+    _rerank_twice(keys, idx_bits)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 6145])
+def test_rerank_around_a_tile(cuda, n):
+    # One key, and a tile (2,048 keys) less one, exactly, plus one.
+    rng = np.random.default_rng(n)
+    groups = np.sort(rng.integers(0, n // 3 + 1, n))
+    keys = torch.from_numpy((groups << 13) | rng.permutation(n)).to(cuda)
+    _rerank_twice(keys, 13)
+
+
+def test_rerank_of_a_view_off_16_byte_alignment(cuda):
+    # keys[1:] starts 8 bytes into its storage: the tile loads fall back
+    # from 128-bit to 64-bit.
+    rng = np.random.default_rng(3)
+    n = 10_000
+    groups = np.sort(rng.integers(0, n // 3, n))
+    packed = np.concatenate([[0], (groups << 14) | rng.permutation(n)])
+    keys = torch.from_numpy(packed).to(cuda)[1:]
+    assert keys.data_ptr() % 16 == 8 and keys.is_contiguous()
+    _rerank_twice(keys, 14)
+
+
+@pytest.mark.parametrize("case", ["one-group", "long-group-inside", "all-distinct"])
+def test_rerank_group_shapes(cuda, case):
+    # A group of equal keys over more than 1,000 tiles: its tiles hold no
+    # head and take their rank from far behind them.
+    n, idx_bits = 2048 * 1200 + 77, 22
+    if case == "one-group":
+        groups = torch.zeros(n, dtype=torch.int64, device=cuda)
+    elif case == "long-group-inside":
+        long = 2048 * 1100 + 5
+        groups = torch.cat([torch.arange(3001), torch.full((long,), 3001),
+                            3002 + torch.arange(n - long - 3001) // 2]).to(cuda)
+    else:
+        groups = torch.arange(n, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    keys = (groups << idx_bits) | torch.randperm(n, device=cuda, generator=gen)
+    _rerank_twice(keys, idx_bits)
+
+
+def test_rerank_64_slots(cuda):
+    rng = np.random.default_rng(12)
+    ns = rng.integers(1, 30_000, 64)
+    ns[[0, 17, 63]] = [1, 1, 2]
+    nb, parts = 15, []
+    for s, n in enumerate(ns):
+        groups = np.sort(rng.integers(0, n // 4 + 1, n))
+        parts.append((s << 40) | (groups << nb) | rng.permutation(n))
+    keys = torch.from_numpy(np.concatenate(parts)).to(cuda)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(ns)[:-1]]).astype(np.int32)).to(cuda)
+    _rerank_twice(keys, nb, 40, offsets)
 
 
 def test_bwt_stage_matches_cpu(cuda):
@@ -147,6 +207,39 @@ def test_mtf_ranks_kernel_matches_plain(cuda):
     cseq, _, m, _, n_in_use = mtf.collapse(last, ns)
     for chunk in (2048, 100):
         _equal(mtf_cuda.mtf_ranks(cseq, n_in_use, m, chunk), mtf_cuda.mtf_ranks_ref(cseq, n_in_use, m, chunk))
+
+
+def _collapsed(rng, n_sym: int, length: int, skew: bool = False) -> np.ndarray:
+    """A sequence over n_sym symbols with adjacent entries distinct."""
+    if n_sym == 1:
+        return np.zeros(1, np.int32)
+    if skew:
+        x = np.minimum(rng.zipf(1.3, 3 * length) - 1, n_sym - 1)
+        return x[np.r_[True, x[1:] != x[:-1]]][:length].astype(np.int32)
+    return (np.cumsum(rng.integers(1, n_sym, length)) % n_sym).astype(np.int32)
+
+
+@pytest.mark.parametrize("chunk", [32, 256, 2048])
+def test_mtf_ranks_rows_of_every_shape(cuda, chunk):
+    # Rows of m = cap, m = 1 and m far below cap, alphabets of 1, 2 and 256;
+    # twice on the same inputs.
+    rng = np.random.default_rng(chunk)
+    cap = 70_001
+    rows = [(256, cap, False), (2, 1234, False), (1, 1, False), (90, 40_000, True),
+            (40, 300, True), (256, 9_000, True), (33, cap, False)]
+    seq = np.full((len(rows), cap), -1, np.int32)
+    m = np.zeros(len(rows), np.int32)
+    for i, (n_sym, length, skew) in enumerate(rows):
+        row = _collapsed(rng, n_sym, length, skew)
+        seq[i, : row.size] = row
+        m[i] = row.size
+    assert m[0] == cap and m[2] == 1
+    args = [torch.from_numpy(a).to(cuda) for a in (seq, np.array([r[0] for r in rows], np.int32), m)]
+    want = mtf_cuda.mtf_ranks_ref(*args, 2048)
+    launches = mtf_cuda.LAUNCHES["mtf_ranks"]
+    for _ in range(2):
+        _equal(mtf_cuda.mtf_ranks(*args, chunk), want)
+    assert mtf_cuda.LAUNCHES["mtf_ranks"] == launches + 2
 
 
 def test_wrappers_reject_bad_inputs_on_card(cuda):

@@ -43,7 +43,7 @@ def _collapsed_seq(rng, n_sym, length):
 
 @pytest.mark.parametrize(
     "n_sym,length,chunk",
-    [(5, 100, 64), (256, 1000, 128), (30, 4095, 512), (3, 17, 256)],
+    [(5, 100, 64), (256, 1000, 128), (30, 4095, 512), (3, 17, 256), (60, 1500, mtf_cuda.CHUNK)],
 )
 def test_ranks_vs_pallas_and_oracle(rng, n_sym, length, chunk):
     seq = _collapsed_seq(rng, n_sym, length)
@@ -78,6 +78,36 @@ def test_ranks_batch_of_unequal_lengths(rng):
     for i, (k, ln) in enumerate(rows):
         np.testing.assert_array_equal(got[i, :ln], _oracle_ranks(seq[i, :ln].tolist(), k))
         assert not got[i, ln:].any()
+
+
+# (alphabet, m) of each row: m = 1, m = cap, m far below cap, alphabets of 1
+# and 256.
+_CHUNK_ROWS = [(1, 1), (256, 700), (256, 40), (7, 700), (2, 33), (40, 300)]
+
+
+@pytest.mark.parametrize("chunk", [1, 32, 256, 2048, 4096])
+def test_ranks_do_not_depend_on_the_chunk(chunk):
+    rng = np.random.default_rng(5)  # the same rows for every chunk
+    cap = 700
+    seq = np.full((len(_CHUNK_ROWS), cap), -1, np.int32)
+    for i, (k, ln) in enumerate(_CHUNK_ROWS):
+        seq[i, :ln] = _collapsed_seq(rng, k, ln) if k > 1 else [0]
+    got = mtf_cuda.mtf_ranks(
+        torch.from_numpy(seq), torch.tensor([k for k, _ in _CHUNK_ROWS], dtype=torch.int32),
+        torch.tensor([ln for _, ln in _CHUNK_ROWS], dtype=torch.int32), chunk,
+    ).numpy()
+    for i, (k, ln) in enumerate(_CHUNK_ROWS):
+        np.testing.assert_array_equal(got[i, :ln], _oracle_ranks(seq[i, :ln].tolist(), k))
+        assert not got[i, ln:].any()
+
+
+def test_wrapper_checks_chunk_and_batch():
+    seq = torch.zeros(2, 8, dtype=torch.int32)
+    ones = torch.ones(2, dtype=torch.int32)
+    for chunk in (0, 4097):
+        with pytest.raises(ValueError):
+            mtf_cuda.mtf_ranks(seq, ones, ones, chunk)
+    assert mtf_cuda.CHUNK == 256
 
 
 def _last_columns(rng, kinds, n, cap):

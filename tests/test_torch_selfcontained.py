@@ -1,7 +1,9 @@
-"""bz2tpu_torch stands alone: no module of the port and not chip_smoke.py
-imports bz2tpu, importing them loads neither bz2tpu nor JAX, a fresh copy
-builds its host C library under its own build/ directory, and each copy
-of a bz2tpu host layer agrees with its original.
+"""bz2tpu_torch stands alone: no module of the port, and neither
+chip_smoke.py nor tools/profile_compress.py, imports bz2tpu or the JAX
+package's bench.py; importing them loads neither bz2tpu nor JAX, a fresh
+copy builds its host C library under its own build/ directory, and each
+copy of a bz2tpu host layer (the benchmark corpus included) agrees with
+its original.
 """
 
 import ast
@@ -16,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import bench
 from bz2tpu import native as jax_native
 from bz2tpu.format import bitio as jax_bitio
 from bz2tpu.format import constants as jax_constants
@@ -28,16 +31,19 @@ from bz2tpu_torch import native
 from bz2tpu_torch.format import bitio, constants, crc32
 from bz2tpu_torch.oracle import decoder, encoder
 from bz2tpu_torch.runtime import compressor, decompressor
+from bz2tpu_torch.utils import corpus
 
 from conftest import make_corpus
 from test_randomised import craft_randomised_stream
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "bz2tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "bz2tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_compress.py"]
+JAX_SIDE = ("bz2tpu", "bench")  # the JAX package and its benchmark script
 
 
 def _imports_of_bz2tpu(path: Path) -> list[str]:
-    """Every import of bz2tpu or bz2tpu.* in the file, at any depth."""
+    """Every import of bz2tpu, bz2tpu.* or bench in the file, at any depth."""
     found = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -46,7 +52,7 @@ def _imports_of_bz2tpu(path: Path) -> list[str]:
             names = [node.module]
         else:
             continue
-        found += [f"{path.name}:{node.lineno} {n}" for n in names if n == "bz2tpu" or n.startswith("bz2tpu.")]
+        found += [f"{path.name}:{node.lineno} {n}" for n in names if n.split(".")[0] in JAX_SIDE]
     return found
 
 
@@ -57,8 +63,9 @@ def test_no_module_imports_bz2tpu(path):
 
 def test_the_scan_sees_nested_imports(tmp_path):
     f = tmp_path / "m.py"
-    f.write_text("def f():\n    if True:\n        from bz2tpu.format import constants\n    import bz2tpu_torch\n")
-    assert _imports_of_bz2tpu(f) == ["m.py:3 bz2tpu.format"]
+    f.write_text("def f():\n    if True:\n        from bz2tpu.format import constants\n    import bz2tpu_torch\n"
+                 "    import bench\n    from bench import make_mixed_corpus\n    import benchmarks\n")
+    assert sorted(_imports_of_bz2tpu(f)) == ["m.py:3 bz2tpu.format", "m.py:5 bench", "m.py:6 bench"]
 
 
 _IMPORT_ALL = """
@@ -69,7 +76,7 @@ for m in pkgutil.walk_packages(bz2tpu_torch.__path__, "bz2tpu_torch."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 import chip_smoke
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bz2tpu"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "bz2tpu", "bench"))
 print("LOADED", loaded)
 print("NATIVE", bz2tpu_torch.native.HAVE_NATIVE, bz2tpu_torch.native.library_path())
 """
@@ -99,6 +106,24 @@ def test_fresh_copy_builds_its_host_library_under_its_own_build_dir(tmp_path):
 
 
 # --- parity of each copy with its original -----------------------------
+
+
+def test_corpus_matches():
+    assert corpus.WORDS == bench.WORDS
+    assert corpus.make_mixed_corpus(1_000_000) == bench.make_mixed_corpus(1_000_000)
+    assert corpus.make_text(5000, 3) == bench.make_text(5000, 3)
+    assert corpus._runs(70_000, 13) == bench._runs(70_000, 13)
+    from_files, from_markov = corpus.real_text_split(1_000_000)
+    assert from_files + from_markov == 400_000
+
+
+def test_corpus_falls_back_to_markov_text_without_installed_files(monkeypatch, tmp_path):
+    monkeypatch.setattr(corpus, "SITE_PACKAGES", str(tmp_path))
+    monkeypatch.setattr(corpus, "LICENCE_TEXT", str(tmp_path / "none.txt"))
+    assert corpus.real_text_split(100_000) == (0, 40_000)
+    blob = corpus.make_mixed_corpus(100_000)
+    assert len(blob) == 100_000
+    assert blob[:40_000] == corpus.make_text(40_000, 7)
 
 
 def test_constants_match():
