@@ -30,7 +30,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> (argtypes); every entry point returns a cudaError_t as int, the
-# *_scratch and *_work helpers return a buffer size in 32-bit words.
+# *_scratch and *_work helpers return a buffer size in 32-bit words, the
+# *_smem helper one in bytes.
 SIGNATURES = {
     "bz2t_radix_sort_scratch": (_I,),
     "bz2t_radix_sort_u64": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -38,8 +39,9 @@ SIGNATURES = {
     "bz2t_rerank": (_P, _I, _I, _I, _P, _I, _P, _P, _P),
     "bz2t_mtf_scratch": (_I, _I, _I),
     "bz2t_mtf_ranks": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
-    "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "bz2t_huffman_lengths": (_P, _P, _P, _I, _P),
+    "bz2t_dec_chain_smem": (_I, _I, _I),
+    "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "bz2t_huffman_plan": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

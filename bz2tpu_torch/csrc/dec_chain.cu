@@ -8,45 +8,204 @@
 //
 //   starts[b][g] = cur;  if (g < n_groups[b]) cur = jump50[b][tbl[b][g]][cur]
 //
-// The chain is serial by nature, so one thread walks one block: the
-// kernel removes launches, not arithmetic. Its bound is the latency of
-// one dependent load from device memory per group; the table ids are
-// independent loads the compiler may issue ahead.
+// The chain is serial by nature: one thread walks one block (one CTA a
+// block). Each step is one load whose address depends on the step before,
+// and the jump maps (hundreds of MB a batch) are far beyond L2, so the plain
+// walk (lookahead 0) pays one device-memory latency a group (~170 ns).
+// With lookahead K > 0 the walker reads group g's jump from a window of the
+// map in shared memory instead, fetched by a bulk asynchronous copy
+// (cp.async.bulk, completion on an mbarrier) that a producer warp issued as
+// soon as the walker had fixed cur_{g-K+1}: the walker's dependent step is
+// a clamp, a bounds check and one shared-memory read (the wait for the
+// next window overlaps it), and the device-memory traffic runs K steps
+// ahead of it. Group g can start anywhere from 50 bits
+// a group later to 50 * max_len bits a group later, a span tens of times
+// wider than a window one SM can fetch each step, so a window of `window`
+// positions is centred where the last K - 1 groups' bits, once more, put
+// it. A position outside its window (a miss, and each of the first K
+// groups) costs one direct load, so the kernel is exact for every input.
+// Three producer warps share the windows (each has three walker steps to
+// issue one), on the SM's other three schedulers.
+//
+// The limit: the walker's step (~100 cycles of dependent shared-memory
+// work and the barrier wait) against the plain walk's one device-memory
+// latency, and the hit rate of the windows; with 8 blocks only 8 SMs walk.
 #include "common.cuh"
 
 namespace {
 
-__global__ void dec_chain(const int* __restrict__ jump50, const int* __restrict__ tbl,
-                          const int* __restrict__ n_groups, int batch, int n_tables,
-                          int nbc, int groups, int* __restrict__ starts) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const int ng = n_groups[b];
-  const int* row_tbl = tbl + (size_t)b * groups;
-  const int* maps = jump50 + (size_t)b * n_tables * nbc;
-  int* out = starts + (size_t)b * groups;
-  int cur = 0;
-  for (int g = 0; g < groups; ++g) {
-    out[g] = cur;
-    if (g < ng) {
-      const int t = min(max(row_tbl[g], 0), n_tables - 1);
-      cur = maps[(size_t)t * nbc + min(max(cur, 0), nbc - 1)];
-    }
+constexpr int kThreads = 256;   // all stage the table ids; one walks, kProducers fetch
+constexpr int kProducers = 3;   // warps 1-3: the other three schedulers of the SM
+constexpr int kGroup = 50;
+constexpr int kRing = 64;       // recent starts kept (a power of two, > 2 * lookahead)
+constexpr int kSlack = 8;       // a window's 16-byte alignment at both ends
+
+__device__ __forceinline__ u32 smem_u32(const void* p) {
+  return static_cast<u32>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(u64* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(u64* bar, u32 parity) {
+  u32 done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
+}
+
+// cur_g from the walker's ring, once the walker has published it.
+__device__ __forceinline__ int ring_read(const u64* ring, int g) {
+  u64 e;
+  do {
+    e = *reinterpret_cast<const volatile u64*>(&ring[g & (kRing - 1)]);
+  } while ((int)(e >> 32) != g);
+  return (int)(u32)e;
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// device memory into shared memory; the mbarrier completes when they land.
+// The slot's previous contents were read by the same thread into the value
+// this copy's address depends on, so no proxy fence is needed (one would
+// also wait for every copy in flight).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, u32 bytes, u64* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+dec_chain(const int* __restrict__ jump50, const int* __restrict__ tbl, const int* __restrict__ n_groups,
+          int batch, int n_tables, int nbc, int groups, int lookahead, int window,
+          int* __restrict__ starts, int* __restrict__ misses) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = lookahead;
+  const int slot_words = window + kSlack;
+  int* win = reinterpret_cast<int*>(smem);           // K windows
+  u64* bars = reinterpret_cast<u64*>(win + (size_t)K * slot_words);
+  int2* meta = reinterpret_cast<int2*>(bars + K);   // window start (position in the row), length
+  u64* ring = reinterpret_cast<u64*>(meta + K);      // (g << 32 | cur_g) of the last kRing groups
+  unsigned char* tsel = reinterpret_cast<unsigned char*>(ring + kRing);  // each group's table
+  const int b = blockIdx.x;
+  const int T = n_tables;
+  const int ng = min(max(n_groups[b], 0), groups);
+  const int* row_tbl = tbl + (size_t)b * groups;
+  const size_t row0 = (size_t)b * T * nbc;
+  const int* maps = jump50 + row0;
+  int* out = starts + (size_t)b * groups;
+  if (K == 0) {  // the plain walk
+    if (threadIdx.x != 0) return;
+    int cur = 0;
+    for (int g = 0; g < groups; ++g) {
+      out[g] = cur;
+      if (g < ng) cur = maps[(size_t)min(max(row_tbl[g], 0), T - 1) * nbc + min(max(cur, 0), nbc - 1)];
+    }
+    if (misses) misses[b] = ng;
+    return;
+  }
+  for (int g = threadIdx.x; g < ng; g += kThreads) tsel[g] = (unsigned char)min(max(row_tbl[g], 0), T - 1);
+  if (threadIdx.x < K) bar_init(&bars[threadIdx.x]);
+  if (threadIdx.x < kRing) ring[threadIdx.x] = threadIdx.x ? ~0ull : 0ull;  // cur_0 = 0; no other tag
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) != 0 || warp > kProducers) return;
+
+  if (warp > 0) {
+    // Producer p = warp - 1: the windows of groups h = K + p, K + p + P, ...
+    // each as soon as the walker has fixed cur_{h-K+1}.
+    const size_t end_al = ((size_t)batch * T * nbc) & ~(size_t)3;  // last whole 16 bytes
+    for (int h = K + warp - 1; h < ng; h += kProducers) {
+      const int known = h - K + 1;
+      const int back = max(known - (K - 1), 0);
+      const int cur = ring_read(ring, known);
+      // Group h starts at least 50 bits a group later; the last K - 1
+      // groups' bits, once more, say where.
+      const int pred = cur + (int)((long long)(cur - ring_read(ring, back)) * (K - 1) / (known - back));
+      const int lo = cur + kGroup * (K - 1);
+      int wlo = min(max(lo, pred - window / 2), nbc - 1);
+      const int whi = min(wlo + window, nbc);
+      // Whole 16-byte words inside the batch's maps; at the ragged end the
+      // window starts earlier (its positions map to elements all the same).
+      const size_t e0 = row0 + (size_t)tsel[h] * nbc + wlo;
+      const size_t e_end = (e0 + (whi - wlo) + 3) & ~(size_t)3;
+      const size_t e0w = e0 & ~(size_t)3;
+      const size_t e0a = e0w < end_al - 4 ? e0w : end_al - 4;
+      const size_t e1c = e_end < end_al ? e_end : end_al;
+      const size_t e1 = e1c > e0a + 4 ? e1c : e0a + 4;
+      const int s = h % K;
+      meta[s] = make_int2(wlo - (int)(e0 - e0a), (int)(e1 - e0a));
+      bulk_load(win + (size_t)s * slot_words, jump50 + e0a, (u32)(e1 - e0a) * 4u, &bars[s]);
+    }
+    return;
+  }
+
+  // The walker: group g's jump from its window (g >= K) or from the map.
+  // While that load is in flight it waits for group g + 1's window and
+  // reads where it lies, so the dependent chain is the clamp, the bounds
+  // check and one load. (Group g + 1's producer needs only cur_{g+2-K}, so
+  // K >= 2 keeps the wait from waiting on this step.)
+  u32 parity = 0;
+  int miss = 0, cur = 0, lo = 0, n = 0;  // lo, n: group g's window
+  for (int g = 0, s = 0; g < ng; ++g) {  // s = g % K
+    const int s1 = s + 1 == K ? 0 : s + 1;
+    out[g] = cur;
+    const int idx = min(max(cur, 0), nbc - 1);
+    const int off = idx - lo;
+    int next;
+    if (g >= K && off >= 0 && off < n) {
+      next = win[(size_t)s * slot_words + off];
+    } else {
+      next = maps[(size_t)tsel[g] * nbc + idx];
+      ++miss;
+    }
+    if (g + 1 >= K && g + 1 < ng) {
+      bar_wait(&bars[s1], (parity >> s1) & 1u);
+      parity ^= 1u << s1;
+      const int2 m = meta[s1];
+      lo = m.x;
+      n = m.y;
+    }
+    cur = next;
+    // One 64-bit store publishes cur_{g+1} with its group: no fence (the
+    // slot this step read fed the value, so those reads are done).
+    *reinterpret_cast<volatile u64*>(&ring[(g + 1) & (kRing - 1)]) = (u64)(g + 1) << 32 | (u32)cur;
+    s = s1;
+  }
+  for (int g = ng; g < groups; ++g) out[g] = cur;
+  if (misses) misses[b] = miss;
 }
 
 }  // namespace
 
-// jump50: (batch, n_tables, nbc) int32 relative 50-symbol jump maps;
-// tbl: (batch, groups) int32 table per group; n_groups: (batch,) int32;
-// starts: (batch, groups) int32 output, each block's final position
-// repeated at and past its n_groups.
-extern "C" int bz2t_dec_chain(const int* jump50, const int* tbl, const int* n_groups,
-                              int batch, int n_tables, int nbc, int groups, int* starts,
-                              cudaStream_t stream) {
+// jump50: (batch, n_tables, nbc) int32 relative 50-symbol jump maps (16-byte
+// aligned); tbl: (batch, groups) int32 table per group; n_groups: (batch,)
+// int32; lookahead: 0 (the plain walk) or 2 .. 16 windows in flight; window:
+// positions a window (a multiple of 4). starts: (batch, groups) int32
+// output, each block's final position repeated at and past its n_groups;
+// misses: (batch,) int32 steps that read device memory directly, or null.
+extern "C" int bz2t_dec_chain_smem(int groups, int lookahead, int window) {
+  if (lookahead == 0) return 0;
+  return lookahead * (window + kSlack) * 4 + lookahead * 16 + kRing * 8 + groups;
+}
+
+extern "C" int bz2t_dec_chain(const int* jump50, const int* tbl, const int* n_groups, int batch,
+                              int n_tables, int nbc, int groups, int lookahead, int window, int* starts,
+                              int* misses, cudaStream_t stream) {
   if (batch <= 0 || groups <= 0) return (int)cudaGetLastError();
-  constexpr int kThreads = 32;
-  dec_chain<<<(batch + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      jump50, tbl, n_groups, batch, n_tables, nbc, groups, starts);
+  if (lookahead < 0 || lookahead == 1 || 2 * lookahead >= kRing || window < 4 || window % 4 || n_tables < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = bz2t_dec_chain_smem(groups, lookahead, window);
+  cudaError_t err = cudaFuncSetAttribute(dec_chain, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dec_chain<<<batch, kThreads, smem, stream>>>(jump50, tbl, n_groups, batch, n_tables, nbc, groups, lookahead,
+                                               window, starts, misses);
   return (int)cudaGetLastError();
 }

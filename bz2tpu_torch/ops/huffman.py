@@ -2,19 +2,12 @@
 bzip2's sendMTFValues.
 
 Port of bz2tpu/ops/huffman.py with the block axis written out: every
-function takes (B, ...) tensors, and the loops that the JAX form runs per
-block under vmap (the depth-cap loop of code_lengths, the refinement to the
-fixed point) run once over the batch while any block is still live, with
-finished blocks frozen by masks, so each block's result is its own.
-
-The two matrix products of the refinement (group x table cost, per-table
-frequencies) run in float64: every count is an integer far below 2^53, so
-the products are exact, and TF32 never applies to float64.
-
-Code lengths come from ops/huffman_cuda.code_lengths: on the card the
-kernel D2 builds each table's tree and applies the depth cap in one launch
-per refinement iteration; on the CPU its plain version, the batched
-257-step tree scan, runs instead.
+function takes (B, ...) tensors. ``huffman_assign`` seeds the tables from
+each block's whole histogram, hands the refinement (group assignment and
+code-length refits to the fixed point, the choice of the iteration-4 state,
+the selector MTF ranks) to ops/huffman_cuda.huffman_plan, which on the card
+is the kernel D2, one launch a batch, and on the CPU its plain loop, then
+derives the canonical codes. On the card nothing in it waits for the host.
 """
 
 from __future__ import annotations
@@ -22,25 +15,16 @@ from __future__ import annotations
 import torch
 
 from bz2tpu_torch.format import constants as C
-from bz2tpu_torch.ops.huffman_cuda import code_lengths
+from bz2tpu_torch.ops.huffman_cuda import huffman_plan, table_count
 
 ALPHA = C.HUFFMAN_MAX_ALPHABET  # 258
 NTAB = C.HUFFMAN_MAX_TABLES  # 6
-_NEG = -(1 << 30)
 _I64 = torch.int64
 
 
 def max_selectors(capacity: int) -> int:
     """Selector-array size for a given symbol capacity (bz2tpu.ops.huffman)."""
     return (capacity + 1 + C.HUFFMAN_GROUP_SIZE - 1) // C.HUFFMAN_GROUP_SIZE + 1
-
-
-def table_count(n_sym: torch.Tensor) -> torch.Tensor:
-    """Tables per block (2..6) from the symbol count."""
-    count = torch.full_like(n_sym, C.HUFFMAN_MIN_TABLES, dtype=_I64)
-    for t in C.TABLE_COUNT_THRESHOLDS:
-        count += (n_sym >= t).to(_I64)
-    return count
 
 
 def seed_lengths(freqs: torch.Tensor, n_groups: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -78,32 +62,6 @@ def seed_lengths(freqs: torch.Tensor, n_groups: torch.Tensor, alpha: torch.Tenso
     return lengths
 
 
-def group_frequencies(symbols: torch.Tensor, maxsel: int) -> torch.Tensor:
-    """(B, maxsel, 258) histogram of symbols per 50-symbol group."""
-    B, S = symbols.shape
-    dev = symbols.device
-    gid = torch.arange(S, dtype=_I64, device=dev) // C.HUFFMAN_GROUP_SIZE
-    rows = torch.arange(B, dtype=_I64, device=dev)[:, None]
-    flat = (rows * maxsel + gid[None, :]) * ALPHA + symbols.to(_I64)
-    counts = torch.bincount(flat[symbols >= 0], minlength=B * maxsel * ALPHA)
-    return counts.view(B, maxsel, ALPHA)
-
-
-def selector_mtf_ranks(selectors: torch.Tensor, n_sel: torch.Tensor) -> torch.Tensor:
-    """MTF rank of each selector against the running table list (B, maxsel)."""
-    B, maxsel = selectors.shape
-    dev = selectors.device
-    lanes = torch.arange(NTAB, dtype=_I64, device=dev)
-    pos = torch.arange(maxsel, dtype=_I64, device=dev)[None, :]
-    sel = torch.where(pos < n_sel[:, None], selectors.to(_I64), -1)
-    times = torch.where(sel[:, :, None] == lanes, pos[:, :, None], _NEG)
-    incl = torch.cummax(times, 1).values
-    before = torch.cat([torch.full_like(incl[:, :1], _NEG), incl[:, :-1]], 1)
-    last = torch.maximum(-(lanes + 1), before)
-    own = last.gather(2, sel.clamp(0, NTAB - 1)[:, :, None])
-    return (last > own).sum(2)
-
-
 def canonical_codes(lengths: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Canonical code values (B, 6, 258) for lengths (B, 6, 258)."""
     dev = lengths.device
@@ -123,6 +81,24 @@ def canonical_codes(lengths: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(valid & (L > 0), base_self + rank_self, 0)
 
 
+
+
+def block_histogram(symbols: torch.Tensor) -> torch.Tensor:
+    """(B, 258) int64 histogram of each block's symbols (-1 ignored), with
+    no host sync: a scatter-add, where bincount would read its maximum.
+    Each bin is spread over 64 counters by position, so the adds to the
+    commonest symbols (RUNA, RUNB) do not queue on one address."""
+    B, S = symbols.shape
+    dev = symbols.device
+    lanes = 64
+    lane = torch.arange(S, dtype=_I64, device=dev) % lanes
+    rows = torch.arange(B, dtype=_I64, device=dev)[:, None] * ALPHA
+    idx = torch.where(symbols >= 0, rows + symbols.to(_I64), B * ALPHA) * lanes + lane
+    counts = torch.zeros((B * ALPHA + 1) * lanes, dtype=_I64, device=dev)
+    counts.index_add_(0, idx.view(-1), torch.ones(1, dtype=_I64, device=dev).expand(idx.numel()))
+    return counts.view(B * ALPHA + 1, lanes)[:-1].sum(1).view(B, ALPHA)
+
+
 def huffman_assign(symbols: torch.Tensor, n_sym: torch.Tensor, n_in_use: torch.Tensor, maxsel: int):
     """Full Huffman planning of a batch (bz2tpu.ops.huffman.huffman_assign
     with freqs=None, vmapped).
@@ -132,77 +108,18 @@ def huffman_assign(symbols: torch.Tensor, n_sym: torch.Tensor, n_in_use: torch.T
     (B, maxsel), lengths, codes (B, 6, 258); all int32. Entries beyond
     the valid alphabet, tables or selector count are don't-care.
     """
-    B = symbols.shape[0]
-    dev = symbols.device
     alpha = n_in_use.to(_I64) + 2
-    n_sym = n_sym.to(_I64)
-    n_groups = table_count(n_sym)
-    n_sel = (n_sym + C.HUFFMAN_GROUP_SIZE - 1) // C.HUFFMAN_GROUP_SIZE
-    gfreq = group_frequencies(symbols, maxsel)
-    gfreq_f = gfreq.to(torch.float64)
-    lengths = seed_lengths(gfreq.sum(1), n_groups, alpha)
-    tables = torch.arange(NTAB, device=dev)
-    table_ok = tables[None, :] < n_groups[:, None]
-    group_valid = torch.arange(maxsel, device=dev)[None, :] < n_sel[:, None]
-    alpha_rows = alpha.repeat_interleave(NTAB)
-
-    def refit(sel):
-        """Per-table frequencies of the groups assigned to each table."""
-        onehot = (sel[:, :, None] == tables) & group_valid[:, :, None]
-        return torch.bmm(onehot.to(torch.float64).transpose(1, 2), gfreq_f).to(_I64)
-
-    selectors = torch.zeros(B, maxsel, dtype=_I64, device=dev)
-    snap = (lengths, selectors)
-    live = torch.ones(B, dtype=torch.bool, device=dev)
-    i_fin = torch.zeros(B, dtype=_I64, device=dev)
-    for i in range(C.HUFFMAN_REFINE_ITERS):
-        if not bool(live.any()):
-            break
-        cost = torch.bmm(gfreq_f, lengths.to(torch.float64).transpose(1, 2))  # exact
-        cost = torch.where(table_ok[:, None, :], cost, float("inf"))
-        new_sel = torch.argmin(cost, dim=2)
-        # Fixed point: the assignment repeated, so the lengths would too.
-        done = (new_sel == selectors).all(1) if i > 0 else torch.zeros_like(live)
-        rfreq = refit(new_sel)
-        fitted = code_lengths(rfreq.view(B * NTAB, ALPHA), alpha_rows).view(B, NTAB, ALPHA)
-        step_len = torch.where(done[:, None, None], lengths, fitted)
-        lengths = torch.where(live[:, None, None], step_len, lengths)
-        selectors = torch.where(live[:, None], new_sel, selectors)
-        if i == 3:
-            # Stock's operating point: the state after exactly 4 iterations.
-            snap = (
-                torch.where(live[:, None, None], lengths, snap[0]),
-                torch.where(live[:, None], selectors, snap[1]),
-            )
-        i_fin = torch.where(live, i + 1, i_fin)
-        live &= ~done
-    # A block that converged before its 5th iteration has no snapshot: its
-    # iteration-4 state is the converged one.
-    snapped = i_fin > 3
-    lengths4 = torch.where(snapped[:, None, None], snap[0], lengths)
-    selectors4 = torch.where(snapped[:, None], snap[1], selectors)
-
-    lane_ok = torch.arange(ALPHA, device=dev)[None, None, :] < alpha[:, None, None]
-    tab_mask = table_ok[:, :, None] & lane_ok
-
-    def total_bits(lg, sel):
-        """Stream bits that depend on (lengths, selectors): symbol codes,
-        selector unaries and delta-coded table rows."""
-        sym_bits = (refit(sel) * lg).sum((1, 2))
-        sel_bits = torch.where(group_valid, selector_mtf_ranks(sel, n_sel) + 1, 0).sum(1)
-        prev = torch.cat([lg[:, :, :1], lg[:, :, :-1]], 2)
-        tab_bits = torch.where(tab_mask, 2 * (lg - prev).abs() + 1, 0).sum((1, 2))
-        return sym_bits + sel_bits + tab_bits
-
-    prefer4 = total_bits(lengths4, selectors4) < total_bits(lengths, selectors)
-    lengths = torch.where(prefer4[:, None, None], lengths4, lengths)
-    selectors = torch.where(prefer4[:, None], selectors4, selectors)
+    n_groups = table_count(n_sym.to(_I64))
+    n_sel = (n_sym.to(_I64) + C.HUFFMAN_GROUP_SIZE - 1) // C.HUFFMAN_GROUP_SIZE
+    seed = seed_lengths(block_histogram(symbols), n_groups, alpha)
     i32 = torch.int32
+    selectors, selector_mtf, lengths, _ = huffman_plan(
+        symbols.to(i32), n_sym.to(i32), n_in_use.to(i32), seed, maxsel)
     return {
         "n_groups": n_groups.to(i32),
         "n_selectors": n_sel.to(i32),
-        "selectors": selectors.to(i32),
-        "selector_mtf": selector_mtf_ranks(selectors, n_sel).to(i32),
-        "lengths": lengths.to(i32),
-        "codes": canonical_codes(lengths, alpha).to(i32),
+        "selectors": selectors,
+        "selector_mtf": selector_mtf,
+        "lengths": lengths,
+        "codes": canonical_codes(lengths.to(_I64), alpha).to(i32),
     }

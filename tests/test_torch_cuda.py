@@ -16,9 +16,13 @@ import pytest
 import torch
 
 import bz2tpu_torch
-from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman_cuda, mtf, mtf_cuda
+from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, mtf, mtf_cuda
 from bz2tpu_torch.ops.bwt import bwt_stage
 from bz2tpu_torch.runtime import device_decode
+from bz2tpu_torch.runtime.compressor import _batch_tensors, split_blocks
+from bz2tpu_torch.utils.corpus import make_mixed_corpus
+
+from huffman_cases import PLAN_CASES, plan_case
 
 pytestmark = pytest.mark.cuda
 
@@ -90,21 +94,66 @@ def test_bwt_stage_sorts_once_per_round(cuda):
         _equal(g.cpu(), w)
 
 
-def test_huffman_lengths_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(6)
-    fib = [1, 1]
-    while len(fib) < 42:
-        fib.append(fib[-1] + fib[-2])
-    rows = [rng.integers(0, 1000, 258), np.full(258, 13), np.zeros(258, np.int64),
-            np.array(fib + [0] * 216), np.array([1 << k for k in range(30)] + [1] * 100 + [0] * 128)]
-    rows += list(rng.integers(0, 50, (43, 258)) ** 3)  # skewed rows: 48 in all
-    freqs = torch.from_numpy(np.stack(rows).astype(np.int64)).to(cuda)
-    alphas = torch.from_numpy(np.concatenate([[258, 258, 3, 42, 130], rng.integers(2, 259, 43)])).to(cuda)
-    launches = huffman_cuda.LAUNCHES["huffman_lengths"]
-    got = huffman_cuda.code_lengths(freqs, alphas)
-    assert huffman_cuda.LAUNCHES["huffman_lengths"] == launches + 1
-    _equal(got, huffman_cuda.code_lengths_ref(freqs, alphas))
-    assert int(got.max()) <= 17
+def _plan_inputs(sym, n_sym, n_in_use, device):
+    """huffman_plan's inputs on ``device``, seeded as huffman_assign seeds."""
+    sym, n_sym, n_in_use = (torch.as_tensor(a).to(device) for a in (sym, n_sym, n_in_use))
+    seed = huffman.seed_lengths(huffman.block_histogram(sym), huffman_cuda.table_count(n_sym.long()),
+                                n_in_use.long() + 2)
+    return sym, n_sym, n_in_use, seed, huffman.max_selectors(sym.shape[1] - 2)
+
+
+def _plan_twice(args, cluster=huffman_cuda.CLUSTER):
+    """D2 against its plain version, twice on the same inputs."""
+    want = huffman_cuda.huffman_plan_ref(*args)
+    launches = huffman_cuda.LAUNCHES["huffman_plan"]
+    for _ in range(2):
+        for got, w in zip(huffman_cuda.huffman_plan(*args, cluster=cluster), want):
+            _equal(got, w)
+    assert huffman_cuda.LAUNCHES["huffman_plan"] == launches + 2
+    return want
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_huffman_plan_kernel_matches_plain(cuda, case):
+    # Blocks stopping at iterations 2-5 and running all 32, one group,
+    # alphabets 3 and 258, 2..6 tables, seed costs that tie, a table that
+    # needs cap retries; at the default cluster of 16 CTAs and at 1, 6, 8.
+    sym, n_sym, n_in_use, iters = plan_case(case)
+    args = _plan_inputs(sym, n_sym, n_in_use, cuda)
+    want = _plan_twice(args)
+    if iters is not None:
+        assert want[3].tolist() == iters
+    for cluster in (1, 6, 8):
+        for got, w in zip(huffman_cuda.huffman_plan(*args, cluster=cluster), want):
+            _equal(got, w)
+
+
+def test_huffman_plan_on_the_corpus_first_batch(cuda):
+    corpus = make_mixed_corpus(8 * 900_000)
+    blocks = split_blocks(corpus, 9)[:8]
+    blocks_t, ns, _ = _batch_tensors(blocks, cuda)
+    last, _ = bwt_stage(blocks_t, ns)
+    plan = mtf.mtf_rle2_plan(last, ns)
+    width = int(plan["n_sym"].max())
+    sym = mtf.rle2_out(plan, width)
+    want = _plan_twice(_plan_inputs(sym, plan["n_sym"], plan["n_in_use"], cuda))
+    assert int(want[3].min()) >= 2
+
+
+def test_huffman_assign_leaves_no_host_sync(cuda):
+    sym, n_sym, n_in_use, _ = plan_case("table-counts-and-alphabets")
+    sym, n_sym, n_in_use = (torch.from_numpy(a).to(cuda) for a in (sym, n_sym, n_in_use))
+    maxsel = huffman.max_selectors(sym.shape[1] - 2)
+    want = huffman.huffman_assign(sym.cpu(), n_sym.cpu(), n_in_use.cpu(), maxsel)
+    huffman_cuda.huffman_plan(*_plan_inputs(sym, n_sym, n_in_use, cuda))  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = huffman.huffman_assign(sym, n_sym, n_in_use, maxsel)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for key in want:
+        _equal(got[key].cpu(), want[key])
 
 
 def test_sort_odd_bit_ranges_and_sizes(cuda):
@@ -263,6 +312,69 @@ def test_dec_chain_kernel_matches_plain(cuda):
     assert dec_cuda.LAUNCHES["dec_chain"] == launches + 1
     with pytest.raises(ValueError):
         dec_cuda.group_starts(args[0], args[1].long(), args[2])
+    with pytest.raises(ValueError):
+        dec_cuda.group_starts(*args, lookahead=1)
+
+
+def _jump_map(gen, B, T, nbc, lo, hi):
+    """(B, T, nbc) int32 jumps of lo..hi - 1 bits (per table when lo, hi
+    are (B, T) tensors), clipped to [0, nbc - 1] as jump50 maps are."""
+    dev = gen.device
+    lo, hi = (torch.as_tensor(x, device=dev).expand(B, T)[..., None] for x in (lo, hi))
+    step = lo + (torch.rand(B, T, nbc, device=dev, generator=gen) * (hi - lo)).long()
+    return (torch.arange(nbc, device=dev) + step).clamp(0, nbc - 1).to(torch.int32)
+
+
+def _chain_twice(jump50, tbl, n_groups):
+    """D1 against its plain loop at the default lookahead twice, then at
+    lookahead 0 (the plain walk), 2 and 16 and at windows of 4 and 4,096;
+    returns the default's misses."""
+    want = dec_cuda.group_starts_ref(jump50, tbl, n_groups)
+    launches = dec_cuda.LAUNCHES["dec_chain"]
+    for _ in range(2):
+        got, misses = dec_cuda.group_starts(jump50, tbl, n_groups, with_misses=True)
+        _equal(got, want)
+    assert dec_cuda.LAUNCHES["dec_chain"] == launches + 2
+    for lookahead, window in ((0, 1024), (2, 1024), (16, 1024), (8, 4), (8, 4096)):
+        _equal(dec_cuda.group_starts(jump50, tbl, n_groups, lookahead=lookahead, window=window), want)
+    return misses
+
+
+@pytest.mark.parametrize("case", ["18002-groups", "alternating-tables", "one-table", "malformed", "nbc-4096"])
+def test_dec_chain_group_shapes(cuda, case):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    T = 6
+    if case == "18002-groups":
+        # The longest chain at the largest bucket (2^23 bits, a 900 KB block
+        # of random bytes at level 9), whose groups are of steady width as
+        # there: 200 bits, give or take 20, whatever the table.
+        B, nbc, G = 2, 1 << 23, 18_002
+        jump50 = _jump_map(gen, B, T, nbc, 180, 221)
+        tbl = torch.randint(0, T, (B, G), device=cuda, generator=gen, dtype=torch.int32)
+        n_groups = torch.full((B,), G, dtype=torch.int32, device=cuda)
+    elif case in ("alternating-tables", "one-table"):
+        B, nbc, G = 4, 1 << 20, 3_000
+        T = 2 if case == "alternating-tables" else 1
+        jump50 = _jump_map(gen, B, T, nbc, 50, 50 * 17 + 1)
+        tbl = (torch.arange(G, device=cuda) % T).to(torch.int32).repeat(B, 1)
+        n_groups = torch.tensor([G, 0, 1, 2_999], dtype=torch.int32, device=cuda)
+    elif case == "malformed":
+        # Jumps backwards, of one bit, or of up to 100 bits a symbol: most
+        # steps land outside their window (the chain stays short of the end).
+        B, nbc, G = 3, 1 << 23, 2_000
+        jump50 = _jump_map(gen, B, T, nbc, -200, 5_000)
+        tbl = torch.randint(0, T, (B, G), device=cuda, generator=gen, dtype=torch.int32)
+        n_groups = torch.tensor([G, G, 1], dtype=torch.int32, device=cuda)
+    else:  # the smallest bucket: the chain reaches the end and stays there
+        B, nbc, G = 3, 1 << 12, 200
+        jump50 = _jump_map(gen, B, T, nbc, 50, 60)
+        tbl = torch.randint(0, T, (B, G), device=cuda, generator=gen, dtype=torch.int32)
+        n_groups = torch.tensor([G, 100, 0], dtype=torch.int32, device=cuda)
+    misses = _chain_twice(jump50.contiguous(), tbl.contiguous(), n_groups)
+    if case == "malformed":
+        assert int(misses[0]) > G // 2
+    if case == "18002-groups":
+        assert int(misses.max()) < G // 2  # most steps read their window
 
 
 def test_decompress_device_on_card_matches_cpu(cuda):
@@ -295,6 +407,6 @@ def test_compress_on_card_matches_cpu_and_counts_launches(cuda):
             counts[name] = 0
     out = bz2tpu_torch.compress(data, level=1)
     assert min(bwt_cuda.LAUNCHES.values()) > 0 and mtf_cuda.LAUNCHES["mtf_ranks"] > 0
-    assert huffman_cuda.LAUNCHES["huffman_lengths"] > 0
+    assert huffman_cuda.LAUNCHES["huffman_plan"] == 1  # one batch, one launch
     assert out == bz2tpu_torch.compress(data, level=1, device="cpu")
     assert stdlib_bz2.decompress(out) == data

@@ -15,6 +15,7 @@ from bz2tpu.oracle.encoder import mtf_rle2_encode as oracle_mtf  # noqa: E402
 from bz2tpu_torch.ops import huffman, huffman_cuda  # noqa: E402
 
 from conftest import CORPUS_KINDS, make_corpus  # noqa: E402
+from huffman_cases import PLAN_CASES, plan_case  # noqa: E402
 
 
 def _freq_rows(rng):
@@ -38,7 +39,7 @@ def _freq_rows(rng):
 
 def test_code_lengths_match_jax(rng):
     freqs, alphas = _freq_rows(rng)
-    got = huffman.code_lengths(torch.from_numpy(freqs), torch.from_numpy(alphas)).numpy()
+    got = huffman_cuda.code_lengths_ref(torch.from_numpy(freqs), torch.from_numpy(alphas)).numpy()
     assert got.max() <= 17
     for i in range(freqs.shape[0]):
         want = jax_huff.code_lengths(jnp.asarray(freqs[i], jnp.int32), jnp.int32(alphas[i]))
@@ -78,8 +79,6 @@ def test_code_lengths_ref_cases_match_jax(case):
     freqs = torch.from_numpy(np.stack([row, row[::-1].copy()]))
     alphas = torch.tensor([alpha, 258])
     got = huffman_cuda.code_lengths_ref(freqs, alphas)
-    # On the CPU the wrapper is the plain version.
-    np.testing.assert_array_equal(huffman.code_lengths(freqs, alphas).numpy(), got.numpy())
     for i in range(2):
         want = jax_huff.code_lengths(jnp.asarray(freqs[i].numpy(), jnp.int32), jnp.int32(alphas[i]))
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
@@ -87,14 +86,20 @@ def test_code_lengths_ref_cases_match_jax(case):
 
 
 def test_code_lengths_wrapper_checks_inputs():
-    freqs = torch.ones(3, 258, dtype=torch.int64)
-    alphas = torch.full((3,), 258)
+    # The code lengths run inside huffman_plan now; its wrapper refuses
+    # what the kernel does not take.
+    sym = torch.zeros(3, 120, dtype=torch.int32)
+    n = torch.full((3,), 120, dtype=torch.int32)
+    seed = torch.zeros(3, 6, 258, dtype=torch.int64)
+    huffman_cuda.huffman_plan(sym, n, n, seed, 4)
     with pytest.raises(ValueError):
-        huffman_cuda.code_lengths(freqs.to(torch.int32), alphas)
+        huffman_cuda.huffman_plan(sym.long(), n, n, seed, 4)
     with pytest.raises(ValueError):
-        huffman_cuda.code_lengths(freqs[:, :100], alphas)
+        huffman_cuda.huffman_plan(sym, n[:2], n, seed, 4)
     with pytest.raises(ValueError):
-        huffman_cuda.code_lengths(freqs, alphas[:2])
+        huffman_cuda.huffman_plan(sym, n, n, seed[:, :, :100], 4)
+    with pytest.raises(ValueError):
+        huffman_cuda.huffman_plan(sym, n, n, seed, 2)  # 120 symbols are 3 groups
 
 
 def test_seed_lengths_match_jax(rng):
@@ -119,9 +124,9 @@ def test_seed_lengths_match_jax(rng):
 def test_selector_mtf_and_canonical_codes_match_jax(rng):
     sel = rng.integers(0, 6, (3, 40))
     n_sel = np.array([40, 17, 1])
-    got = huffman.selector_mtf_ranks(torch.from_numpy(sel), torch.from_numpy(n_sel)).numpy()
+    got = huffman_cuda.selector_mtf_ranks(torch.from_numpy(sel), torch.from_numpy(n_sel)).numpy()
     freqs, alphas = _freq_rows(rng)
-    lengths = huffman.code_lengths(torch.from_numpy(freqs), torch.from_numpy(alphas))
+    lengths = huffman_cuda.code_lengths_ref(torch.from_numpy(freqs), torch.from_numpy(alphas))
     codes = huffman.canonical_codes(lengths[:, None, :], torch.from_numpy(alphas)).numpy()
     for b in range(3):
         want = jax_huff.selector_mtf_ranks(jnp.asarray(sel[b], jnp.int32), jnp.int32(n_sel[b]))
@@ -171,3 +176,37 @@ def test_huffman_assign_matches_jax(rng):
             np.testing.assert_array_equal(
                 got[key][b, :ng, :alpha].numpy(), want[key][b, :ng, :alpha], err_msg=key
             )
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_huffman_plan_ref_matches_jax(case, monkeypatch):
+    sym, n_sym, n_in_use, want_iters = plan_case(case)
+    maxsel = huffman.max_selectors(sym.shape[1] - 2)
+    sym_t, n_sym_t, niu_t = map(torch.from_numpy, (sym, n_sym, n_in_use))
+    n_groups = huffman_cuda.table_count(n_sym_t.long())
+    seed = huffman.seed_lengths(huffman.block_histogram(sym_t), n_groups, niu_t.long() + 2)
+    depth_calls = []
+    real_depths = huffman_cuda.huffman_depths
+    monkeypatch.setattr(huffman_cuda, "huffman_depths", lambda w, a: depth_calls.append(1) or real_depths(w, a))
+    # On the CPU the wrapper is the plain version.
+    sel, sel_mtf, lengths, iters = huffman_cuda.huffman_plan(sym_t, n_sym_t, niu_t, seed, maxsel)
+    want = jax.vmap(
+        lambda s, ns, niu: jax_huff.huffman_assign(s, ns, None, niu, maxsel=maxsel)
+    )(jnp.asarray(sym), jnp.asarray(n_sym), jnp.asarray(n_in_use))
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(want["selectors"]))
+    np.testing.assert_array_equal(sel_mtf.numpy(), np.asarray(want["selector_mtf"]))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(want["lengths"]))
+    if want_iters is not None:
+        assert iters.tolist() == want_iters
+    if case == "table-counts-and-alphabets":
+        assert sorted(set(n_groups.tolist())) == [2, 3, 4, 5, 6] and n_sym[0] < 50
+        # Groups whose seed costs tie between tables: argmin takes the first.
+        gfreq = huffman_cuda.group_frequencies(sym_t, maxsel).double()
+        cost = torch.bmm(gfreq, seed.double().transpose(1, 2))
+        live = torch.arange(6)[None, None, :] < n_groups[:, None, None]
+        cost = torch.where(live, cost, float("inf"))
+        ties = (cost == cost.min(2, keepdim=True).values).sum(2) > 1
+        assert bool(ties.any())
+    if case == "cap-retries":
+        assert len(depth_calls) > int(iters.max())  # one tree pass an iteration, plus retries
+        assert int(lengths.max()) == 17

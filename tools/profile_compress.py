@@ -14,7 +14,9 @@ own sources, whatever its rank ("port_kernels": the names that start with
 `radix_`, `rerank_`, `mtf_`, `huffman_` or `dec_chain`, so each pass of a
 kernel that takes several launches shows apart). The launch count of K1's
 `radix_upfront_histogram` is the number of sorts, that of its
-`radix_onesweep` the number of radix-sort passes. Needs a CUDA card.
+`radix_onesweep` the number of radix-sort passes, and D2's
+`huffman_plan` launches once a batch (the whole Huffman refinement).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
