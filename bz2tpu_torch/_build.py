@@ -39,9 +39,9 @@ SIGNATURES = {
     "bz2t_rerank": (_P, _I, _I, _I, _P, _I, _P, _P, _P),
     "bz2t_mtf_scratch": (_I, _I, _I),
     "bz2t_mtf_ranks": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
-    "bz2t_dec_chain_smem": (_I, _I, _I),
-    "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "bz2t_huffman_plan": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "bz2t_dec_chain_smem": (_I,),
+    "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "bz2t_huffman_plan": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

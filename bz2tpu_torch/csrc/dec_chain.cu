@@ -10,35 +10,56 @@
 //
 // The chain is serial by nature: one thread walks one block (one CTA a
 // block). Each step is one load whose address depends on the step before,
-// and the jump maps (hundreds of MB a batch) are far beyond L2, so the plain
-// walk (lookahead 0) pays one device-memory latency a group (~170 ns).
-// With lookahead K > 0 the walker reads group g's jump from a window of the
-// map in shared memory instead, fetched by a bulk asynchronous copy
-// (cp.async.bulk, completion on an mbarrier) that a producer warp issued as
-// soon as the walker had fixed cur_{g-K+1}: the walker's dependent step is
-// a clamp, a bounds check and one shared-memory read (the wait for the
-// next window overlaps it), and the device-memory traffic runs K steps
-// ahead of it. Group g can start anywhere from 50 bits
-// a group later to 50 * max_len bits a group later, a span tens of times
-// wider than a window one SM can fetch each step, so a window of `window`
-// positions is centred where the last K - 1 groups' bits, once more, put
-// it. A position outside its window (a miss, and each of the first K
-// groups) costs one direct load, so the kernel is exact for every input.
-// Three producer warps share the windows (each has three walker steps to
-// issue one), on the SM's other three schedulers.
+// and the jump maps (hundreds of MB a batch) are far beyond L2, so a walk
+// that reads the map pays one device-memory latency a group (~160 ns).
+// Here the walker reads group g's jump from a window of the map in shared
+// memory instead, fetched by a bulk asynchronous copy (cp.async.bulk,
+// completion on an mbarrier) that a producer warp issued as soon as the
+// walker had fixed cur_{g-K+1}: the walker's dependent step is a clamp, a
+// bounds check and one shared-memory read, and the device-memory traffic
+// runs K = kLookahead steps ahead of it.
 //
-// The limit: the walker's step (~100 cycles of dependent shared-memory
-// work and the barrier wait) against the plain walk's one device-memory
-// latency, and the hit rate of the windows; with 8 blocks only 8 SMs walk.
+// Where a window goes. Group g can start anywhere from 50 bits a group
+// later to 50 * max_len bits a group later, a span tens of times wider than
+// a window one SM can fetch each step, so a window of kWindow positions is
+// centred where the K - 1 groups in between put it, each at its table's
+// recent group width (a moving average: a table's groups are of like
+// width, while widths differ by hundreds of bits from table to table in
+// text). On the text and random blocks of a mixed corpus about 1% of the
+// steps fall outside their window. A position outside its window (a miss,
+// and each of the first K groups) costs one direct load, so the kernel is
+// exact for every input.
+//
+// Who does what. Three producer warps, on the SM's other three
+// schedulers, take the windows in turn (each has three walker steps to
+// place and issue one: a warp sum over the K - 1 groups' widths, one lane
+// issuing the copy); they back off between polls of the walker's progress,
+// whose shared-memory traffic otherwise slows the walker's own reads by a
+// tenth. The walker is unrolled over the K slots of its window ring, so a
+// slot's address and barrier phase are constants, and it waits for a
+// window two steps before it reads it.
+//
+// The limit: the walker's step, ~115 ns of dependent instructions and
+// shared-memory reads against ~160 ns of device-memory latency a step for
+// a walk that reads the map; only one SM walks a block, so a batch of 8
+// blocks keeps 8 SMs busy. Each step fetches a window of 4 KB, ~35 GB/s an
+// SM.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // all stage the table ids; one walks, kProducers fetch
 constexpr int kProducers = 3;   // warps 1-3: the other three schedulers of the SM
+constexpr int kLookahead = 16;  // windows in flight (>= 3: the walker waits two steps ahead)
+constexpr int kWindow = 1024;   // positions a window (a multiple of 4)
 constexpr int kGroup = 50;
-constexpr int kRing = 64;       // recent starts kept (a power of two, > 2 * lookahead)
+constexpr int kTables = 6;
+constexpr int kRing = 64;       // recent starts kept (a power of two, > 2 * kLookahead)
 constexpr int kSlack = 8;       // a window's 16-byte alignment at both ends
+constexpr int kFrac = 8;        // fraction bits of the width averages
+constexpr int kMaxWidth = 1 << 14;  // widths clipped (a malformed map jumps anywhere)
+constexpr int kPollNs = 64;     // a producer's back-off between polls of the ring
+static_assert(kLookahead >= 3 && 2 * kLookahead < kRing && kWindow % 4 == 0, "window ring");
 
 __device__ __forceinline__ u32 smem_u32(const void* p) {
   return static_cast<u32>(__cvta_generic_to_shared(p));
@@ -48,25 +69,26 @@ __device__ __forceinline__ void bar_init(u64* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar)) : "memory");
 }
 
-__device__ __forceinline__ void bar_wait(u64* bar, u32 parity) {
+// Wait for the phase of the mbarrier at shared address `bar` with this parity.
+__device__ __forceinline__ void bar_wait(u32 bar, u32 parity) {
   u32 done = 0;
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}"
         : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
+        : "r"(bar), "r"(parity)
         : "memory");
   }
 }
 
 // cur_g from the walker's ring, once the walker has published it.
 __device__ __forceinline__ int ring_read(const u64* ring, int g) {
-  u64 e;
-  do {
-    e = *reinterpret_cast<const volatile u64*>(&ring[g & (kRing - 1)]);
-  } while ((int)(e >> 32) != g);
-  return (int)(u32)e;
+  while (true) {
+    const u64 e = *reinterpret_cast<const volatile u64*>(&ring[g & (kRing - 1)]);
+    if ((int)(e >> 32) == g) return (int)(u32)e;
+    __nanosleep(kPollNs);
+  }
 }
 
 // Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
@@ -83,13 +105,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, u32 bytes,
 
 __global__ void __launch_bounds__(kThreads)
 dec_chain(const int* __restrict__ jump50, const int* __restrict__ tbl, const int* __restrict__ n_groups,
-          int batch, int n_tables, int nbc, int groups, int lookahead, int window,
-          int* __restrict__ starts, int* __restrict__ misses) {
+          int batch, int n_tables, int nbc, int groups, int* __restrict__ starts, int* __restrict__ misses) {
+  constexpr int K = kLookahead;
+  constexpr int slot_words = kWindow + kSlack;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = lookahead;
-  const int slot_words = window + kSlack;
   int* win = reinterpret_cast<int*>(smem);           // K windows
-  u64* bars = reinterpret_cast<u64*>(win + (size_t)K * slot_words);
+  u64* bars = reinterpret_cast<u64*>(win + K * slot_words);
   int2* meta = reinterpret_cast<int2*>(bars + K);   // window start (position in the row), length
   u64* ring = reinterpret_cast<u64*>(meta + K);      // (g << 32 | cur_g) of the last kRing groups
   unsigned char* tsel = reinterpret_cast<unsigned char*>(ring + kRing);  // each group's table
@@ -100,38 +121,53 @@ dec_chain(const int* __restrict__ jump50, const int* __restrict__ tbl, const int
   const size_t row0 = (size_t)b * T * nbc;
   const int* maps = jump50 + row0;
   int* out = starts + (size_t)b * groups;
-  if (K == 0) {  // the plain walk
-    if (threadIdx.x != 0) return;
-    int cur = 0;
-    for (int g = 0; g < groups; ++g) {
-      out[g] = cur;
-      if (g < ng) cur = maps[(size_t)min(max(row_tbl[g], 0), T - 1) * nbc + min(max(cur, 0), nbc - 1)];
-    }
-    if (misses) misses[b] = ng;
-    return;
-  }
+  const bool fetch = (size_t)batch * T * nbc >= 4;  // 16 bytes to copy a window from
   for (int g = threadIdx.x; g < ng; g += kThreads) tsel[g] = (unsigned char)min(max(row_tbl[g], 0), T - 1);
   if (threadIdx.x < K) bar_init(&bars[threadIdx.x]);
   if (threadIdx.x < kRing) ring[threadIdx.x] = threadIdx.x ? ~0ull : 0ull;  // cur_0 = 0; no other tag
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) != 0 || warp > kProducers) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp > kProducers || (warp == 0 && lane != 0)) return;
 
   if (warp > 0) {
-    // Producer p = warp - 1: the windows of groups h = K + p, K + p + P, ...
-    // each as soon as the walker has fixed cur_{h-K+1}.
+    if (!fetch) return;
+    // Producer warp p = warp - 1: the windows of groups h = K + p, K + p + P,
+    // ... each as soon as the walker has fixed cur_{h-K+1}. Its width
+    // averages (the same in every lane; 8 fraction bits, -1 before the
+    // first): est[t] for table t (bzip2 has at most six; any more share the
+    // last), est[kTables] for any table, each moved a quarter of the way to
+    // the width of group h - K, whose end it has just read (a sample of one
+    // group in kProducers guides as well as all of them). Lane q < K - 1
+    // looks up group known + q's width; one warp sum gives the span.
     const size_t end_al = ((size_t)batch * T * nbc) & ~(size_t)3;  // last whole 16 bytes
+    int est[kTables + 1];
+#pragma unroll
+    for (int k = 0; k <= kTables; ++k) est[k] = -1;
     for (int h = K + warp - 1; h < ng; h += kProducers) {
       const int known = h - K + 1;
-      const int back = max(known - (K - 1), 0);
       const int cur = ring_read(ring, known);
-      // Group h starts at least 50 bits a group later; the last K - 1
-      // groups' bits, once more, say where.
-      const int pred = cur + (int)((long long)(cur - ring_read(ring, back)) * (K - 1) / (known - back));
+      const int w = min(max(cur - ring_read(ring, known - 1), 0), kMaxWidth) << kFrac;
+      const int tw = min((int)tsel[known - 1], kTables - 1);
+#pragma unroll
+      for (int k = 0; k <= kTables; ++k)
+        if (k == tw || k == kTables) est[k] = est[k] < 0 ? w : est[k] + ((w - est[k]) >> 2);
+      int e = 0;
+      if (lane < K - 1) {
+        const int t = min((int)tsel[known + lane], kTables - 1);
+        e = est[kTables];
+#pragma unroll
+        for (int k = 0; k < kTables; ++k)
+          if (k == t && est[k] >= 0) e = est[k];
+      }
+      const int span = __reduce_add_sync(BZ2T_FULL_MASK, e);
+      if (lane != 0) continue;
+      // Group h starts at least 50 bits a group later; the widths of the
+      // groups before it, table by table, say where.
+      const int pred = cur + (span >> kFrac);
       const int lo = cur + kGroup * (K - 1);
-      int wlo = min(max(lo, pred - window / 2), nbc - 1);
-      const int whi = min(wlo + window, nbc);
+      const int wlo = min(max(lo, pred - kWindow / 2), nbc - 1);
+      const int whi = min(wlo + kWindow, nbc);
       // Whole 16-byte words inside the batch's maps; at the ragged end the
       // window starts earlier (its positions map to elements all the same).
       const size_t e0 = row0 + (size_t)tsel[h] * nbc + wlo;
@@ -147,37 +183,49 @@ dec_chain(const int* __restrict__ jump50, const int* __restrict__ tbl, const int
     return;
   }
 
-  // The walker: group g's jump from its window (g >= K) or from the map.
-  // While that load is in flight it waits for group g + 1's window and
-  // reads where it lies, so the dependent chain is the clamp, the bounds
-  // check and one load. (Group g + 1's producer needs only cur_{g+2-K}, so
-  // K >= 2 keeps the wait from waiting on this step.)
-  u32 parity = 0;
-  int miss = 0, cur = 0, lo = 0, n = 0;  // lo, n: group g's window
-  for (int g = 0, s = 0; g < ng; ++g) {  // s = g % K
-    const int s1 = s + 1 == K ? 0 : s + 1;
-    out[g] = cur;
-    const int idx = min(max(cur, 0), nbc - 1);
-    const int off = idx - lo;
-    int next;
-    if (g >= K && off >= 0 && off < n) {
-      next = win[(size_t)s * slot_words + off];
-    } else {
-      next = maps[(size_t)tsel[g] * nbc + idx];
-      ++miss;
+  // The walker, unrolled over the K slots of a round of K groups (the
+  // slot, its window's shared-memory address and its mbarrier phase are
+  // then constants): group g reads its jump from its window or, for a
+  // miss and for the first K groups, from the map. While that load is in
+  // flight it waits for group g + 2's window and reads where it lies, so
+  // the dependent chain is the clamp, the bounds check and one load, with
+  // the wait and its reads two steps ahead of their use. (Group g + 2's
+  // producer needs only cur_{g+3-K}, so K >= 3 keeps the wait from
+  // waiting on this step.)
+  int miss = 0, cur = 0;
+  int lo[K], n[K];  // the window of the group in each slot (n = 0: none)
+#pragma unroll
+  for (int s = 0; s < K; ++s) lo[s] = n[s] = 0;
+  const u32 bars_sa = smem_u32(bars);
+  for (int base = 0; base < ng; base += K) {
+    const u32 round_bit = (u32)(base / K) & 1u;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int g = base + s;
+      if (g >= ng) break;
+      out[g] = cur;
+      const int idx = min(max(cur, 0), nbc - 1);
+      const u32 off = (u32)(idx - lo[s]);
+      int next;
+      if (off < (u32)n[s]) {
+        next = win[s * slot_words + off];
+      } else {
+        next = maps[(size_t)tsel[g] * nbc + idx];
+        ++miss;
+      }
+      const int s2 = s + 2 < K ? s + 2 : s + 2 - K;
+      if (fetch && g + 2 >= K && g + 2 < ng) {
+        // Window g + 2 completes phase (g + 2) / K - 1 of its barrier.
+        bar_wait(bars_sa + 8u * s2, s + 2 < K ? round_bit ^ 1u : round_bit);
+        const int2 m = meta[s2];
+        lo[s2] = m.x;
+        n[s2] = m.y;
+      }
+      cur = next;
+      // One 64-bit store publishes cur_{g+1} with its group: no fence (the
+      // slot this step read fed the value, so those reads are done).
+      *reinterpret_cast<volatile u64*>(&ring[(g + 1) & (kRing - 1)]) = (u64)(g + 1) << 32 | (u32)cur;
     }
-    if (g + 1 >= K && g + 1 < ng) {
-      bar_wait(&bars[s1], (parity >> s1) & 1u);
-      parity ^= 1u << s1;
-      const int2 m = meta[s1];
-      lo = m.x;
-      n = m.y;
-    }
-    cur = next;
-    // One 64-bit store publishes cur_{g+1} with its group: no fence (the
-    // slot this step read fed the value, so those reads are done).
-    *reinterpret_cast<volatile u64*>(&ring[(g + 1) & (kRing - 1)]) = (u64)(g + 1) << 32 | (u32)cur;
-    s = s1;
   }
   for (int g = ng; g < groups; ++g) out[g] = cur;
   if (misses) misses[b] = miss;
@@ -187,25 +235,21 @@ dec_chain(const int* __restrict__ jump50, const int* __restrict__ tbl, const int
 
 // jump50: (batch, n_tables, nbc) int32 relative 50-symbol jump maps (16-byte
 // aligned); tbl: (batch, groups) int32 table per group; n_groups: (batch,)
-// int32; lookahead: 0 (the plain walk) or 2 .. 16 windows in flight; window:
-// positions a window (a multiple of 4). starts: (batch, groups) int32
-// output, each block's final position repeated at and past its n_groups;
-// misses: (batch,) int32 steps that read device memory directly, or null.
-extern "C" int bz2t_dec_chain_smem(int groups, int lookahead, int window) {
-  if (lookahead == 0) return 0;
-  return lookahead * (window + kSlack) * 4 + lookahead * 16 + kRing * 8 + groups;
+// int32. starts: (batch, groups) int32 output, each block's final position
+// repeated at and past its n_groups; misses: (batch,) int32 steps that read
+// device memory directly, or null.
+extern "C" int bz2t_dec_chain_smem(int groups) {
+  return kLookahead * (kWindow + kSlack) * 4 + kLookahead * 16 + kRing * 8 + groups;
 }
 
 extern "C" int bz2t_dec_chain(const int* jump50, const int* tbl, const int* n_groups, int batch,
-                              int n_tables, int nbc, int groups, int lookahead, int window, int* starts,
-                              int* misses, cudaStream_t stream) {
+                              int n_tables, int nbc, int groups, int* starts, int* misses, cudaStream_t stream) {
   if (batch <= 0 || groups <= 0) return (int)cudaGetLastError();
-  if (lookahead < 0 || lookahead == 1 || 2 * lookahead >= kRing || window < 4 || window % 4 || n_tables < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = bz2t_dec_chain_smem(groups, lookahead, window);
+  if (n_tables < 1) return (int)cudaErrorInvalidValue;
+  const int smem = bz2t_dec_chain_smem(groups);
   cudaError_t err = cudaFuncSetAttribute(dec_chain, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dec_chain<<<batch, kThreads, smem, stream>>>(jump50, tbl, n_groups, batch, n_tables, nbc, groups, lookahead,
-                                               window, starts, misses);
+  dec_chain<<<batch, kThreads, smem, stream>>>(jump50, tbl, n_groups, batch, n_tables, nbc, groups, starts,
+                                               misses);
   return (int)cudaGetLastError();
 }

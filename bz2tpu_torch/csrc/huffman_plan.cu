@@ -24,7 +24,8 @@
 //   are fewer than the last state's; then the chosen selectors' MTF ranks.
 //
 // Design for the H100. Blocks are independent: each is one cluster of
-// `cluster` CTAs (16 by default, one CTA per SM; > 8 is non-portable). A CTA
+// kCluster = 8 CTAs, the portable cluster size (16, one CTA per SM for a
+// batch of 8, is no faster: the six tables' builds set the time). A CTA
 // owns a contiguous range of the block's groups and keeps, in shared memory,
 // the six tables' lengths packed 10 bits a table into one u64 per symbol (a
 // group's cost under a table is at most 50 * 17 < 1024), so a group's six
@@ -46,9 +47,8 @@
 // iterations. What bounds the kernel on this card is the serial two-queue
 // merge of each table's tree (257 dependent steps by one thread), once per
 // iteration and again per cap retry, times 2-32 iterations; the parallel
-// phases (costs, histograms, depths, scans) take less, and a cluster of 8
-// CTAs is as fast as one of 16. A parallel exact tree construction is the
-// lever left.
+// phases (costs, histograms, depths, scans) take less. A parallel exact
+// tree construction is the lever left.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -67,7 +67,8 @@ constexpr int kIters = 32;      // HUFFMAN_REFINE_ITERS
 constexpr int kSnapIter = 3;    // the state after 4 iterations
 constexpr int kField = 10;      // bits of one table's cost in a packed sum
 constexpr int kFieldMask = (1 << kField) - 1;
-constexpr int kMaxCluster = 16;
+constexpr int kCluster = 8;  // CTAs a block: CTA t < 6 owns table t
+static_assert(kCluster >= kTables, "one owner CTA a table");
 constexpr int kNone = -(1 << 30);  // "no occurrence" in the MTF scan
 constexpr unsigned char kNoTable = 0xFF;
 
@@ -205,7 +206,7 @@ __device__ __forceinline__ void move_run(int (*hist)[kAlpha], int from, int to, 
   atomicAdd(&hist[to][s], count);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__ n_syms,
              const int* __restrict__ n_in_uses, const int* __restrict__ seed, int maxsel,
              int* __restrict__ selectors, int* __restrict__ sel_mtf, int* __restrict__ lengths,
@@ -213,7 +214,7 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
   __shared__ Shared sm;
   extern __shared__ __align__(16) unsigned char dyn[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int csize = (int)cluster.num_blocks();
+  constexpr int csize = kCluster;
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / csize;
   const int t = threadIdx.x;
@@ -292,8 +293,9 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
     i_fin = it + 1;
     if (it > 0 && !any) break;  // the fixed point: lengths would repeat
 
-    // B. Owners: the cluster's histogram of each owned table, its lengths.
-    for (int tb = rank; tb < kTables; tb += csize) {
+    // B. Owners: the cluster's histogram of the owned table, its lengths.
+    if (rank < kTables) {  // the owner of table tb = rank
+      const int tb = rank;
       for (int s = t; s < kAlpha; s += kThreads) {
         int f = 0;
         for (int c = 0; c < csize; ++c) f += cluster.map_shared_rank(&sm.hist[tb][0], c)[s];
@@ -311,7 +313,7 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
     for (int s = t; s < kAlpha; s += kThreads) {
       u64 p = 0;
       for (int k = 0; k < kTables; ++k)
-        p |= (u64)cluster.map_shared_rank(&sm.len[k][0], k % csize)[s] << (kField * k);
+        p |= (u64)cluster.map_shared_rank(&sm.len[k][0], k)[s] << (kField * k);
       sm.packed[s] = p;
     }
     if (it == kSnapIter) {
@@ -323,7 +325,8 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
 
   // The candidates: 0 = the last state, 1 = the snapshot (if taken).
   const int n_cand = have_snap ? 2 : 1;
-  for (int tb = rank; tb < kTables; tb += csize) {
+  if (rank < kTables) {  // the owner of table tb = rank
+    const int tb = rank;
     for (int cand = 0; cand < n_cand; ++cand) {
       const int* f = cand ? sm.rfreq4[tb] : sm.rfreq[tb];
       const unsigned char* L = cand ? sm.len4[tb] : sm.len[tb];
@@ -427,7 +430,7 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
   long long total_bits[2] = {0, 0};
   for (int cand = 0; cand < n_cand; ++cand) {
     for (int k = 0; k < kTables; ++k)
-      total_bits[cand] += cluster.map_shared_rank(&sm.table_bits[cand][0], k % csize)[k];
+      total_bits[cand] += cluster.map_shared_rank(&sm.table_bits[cand][0], k)[k];
     for (int c = 0; c < csize; ++c) total_bits[cand] += *cluster.map_shared_rank(&sm.sel_bits[cand], c);
   }
   const int pick = (have_snap && total_bits[1] < total_bits[0]) ? 1 : 0;
@@ -443,7 +446,8 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
     out_sel[g] = 0;
     out_mtf[g] = tail[pick];
   }
-  for (int tb = rank; tb < kTables; tb += csize) {
+  if (rank < kTables) {  // the owner of table tb = rank
+    const int tb = rank;
     const unsigned char* L = pick ? sm.len4[tb] : sm.len[tb];
     for (int s = t; s < kAlpha; s += kThreads) lengths[((size_t)b * kTables + tb) * kAlpha + s] = L[s];
   }
@@ -455,35 +459,19 @@ huffman_plan(const int* __restrict__ symbols, int width, const int* __restrict__
 
 // symbols: (batch, width) int32 RLE2 symbols, -1 past n_sym; n_sym,
 // n_in_use: (batch,) int32; seed: (batch, 6, 258) int32 seed lengths;
-// maxsel: selector slots a block; cluster: CTAs a block (1..16). Outputs:
-// selectors, sel_mtf (batch, maxsel), lengths (batch, 6, 258), iters
-// (batch,), all int32.
+// maxsel: selector slots a block. Outputs: selectors, sel_mtf (batch,
+// maxsel), lengths (batch, 6, 258), iters (batch,), all int32.
 extern "C" int bz2t_huffman_plan(const int* symbols, const int* n_sym, const int* n_in_use,
-                                 const int* seed, int batch, int width, int maxsel, int cluster,
+                                 const int* seed, int batch, int width, int maxsel,
                                  int* selectors, int* sel_mtf, int* lengths, int* iters,
                                  cudaStream_t stream) {
   if (batch <= 0) return (int)cudaGetLastError();
-  if (cluster < 1 || cluster > kMaxCluster || maxsel < 1) return (int)cudaErrorInvalidValue;
-  const int cap = (maxsel + cluster - 1) / cluster;
+  if (maxsel < 1) return (int)cudaErrorInvalidValue;
+  const int cap = (maxsel + kCluster - 1) / kCluster;
   const int dyn = (4 * cap + 15) & ~15;
   cudaError_t err = cudaFuncSetAttribute(huffman_plan, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(huffman_plan, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(batch * cluster));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)dyn;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, huffman_plan, symbols, width, n_sym, n_in_use, seed, maxsel,
-                           selectors, sel_mtf, lengths, iters);
-  if (err != cudaSuccess) return (int)err;
+  huffman_plan<<<batch * kCluster, kThreads, dyn, stream>>>(symbols, width, n_sym, n_in_use, seed, maxsel,
+                                                            selectors, sel_mtf, lengths, iters);
   return (int)cudaGetLastError();
 }

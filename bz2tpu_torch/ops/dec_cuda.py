@@ -8,8 +8,9 @@ lax.fori_loop (bz2tpu/ops/huffman_dec.py:231-239); in eager torch a loop
 of up to 18,002 steps of dependent gathers per bucket is bound by the
 host's launch pace, so the port walks it in one kernel, which reads each
 step's jump from a window of the map that it fetched into shared memory
-some groups ahead (see csrc/dec_chain.cu). It is a port-only kernel: it
-replaces a fori_loop, not a pl.pallas_call.
+some groups ahead, where each table's recent group widths put the group
+(see csrc/dec_chain.cu). It is a port-only kernel: it replaces a
+fori_loop, not a pl.pallas_call.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -23,8 +24,6 @@ from bz2tpu_torch import _build
 
 # Kernel launches by wrapper (reset to 0 to count one run).
 LAUNCHES = {"dec_chain": 0}
-LOOKAHEAD = 16  # windows in flight on the card (0: the plain walk)
-WINDOW = 512  # positions a window
 SMEM_LIMIT = 232_448  # bytes of shared memory a CTA can have on the H100
 
 
@@ -47,16 +46,14 @@ def group_starts_ref(jump50: torch.Tensor, tbl: torch.Tensor, n_groups: torch.Te
     return torch.stack(starts, 1).to(torch.int32)
 
 
-def group_starts(jump50: torch.Tensor, tbl: torch.Tensor, n_groups: torch.Tensor, *,
-                 lookahead: int = LOOKAHEAD, window: int = WINDOW, with_misses: bool = False):
+def group_starts(jump50: torch.Tensor, tbl: torch.Tensor, n_groups: torch.Tensor, *, with_misses: bool = False):
     """Start bit (relative) of every Huffman group of a batch of blocks.
 
     jump50: (B, T, nbc) int32 50-symbol jump maps; tbl: (B, G) int32
     table per group, in [0, T); n_groups: (B,) int32, at most G. Returns
     (B, G) int32, and with ``with_misses`` also the (B,) int32 count of
-    steps that read the map from device memory (on the CPU every step
-    does). On the card ``lookahead`` windows of ``window`` positions are in
-    flight (lookahead 0: the plain walk; else 2..16).
+    steps that read the map from device memory, not a window (on the CPU
+    every step does).
     """
     if jump50.dtype != torch.int32 or jump50.dim() != 3 or not jump50.is_contiguous():
         raise ValueError(f"jump50 must be a contiguous (B, T, nbc) int32 tensor, got {jump50.dtype} {tuple(jump50.shape)}")
@@ -70,22 +67,18 @@ def group_starts(jump50: torch.Tensor, tbl: torch.Tensor, n_groups: torch.Tensor
         return (starts, n_groups.clamp(0, tbl.shape[1])) if with_misses else starts
     if jump50.device.type != "cuda":
         raise ValueError(f"unsupported device {jump50.device}")
-    if lookahead not in range(2, 17) and lookahead != 0 or window < 4 or window % 4:
-        raise ValueError(f"lookahead must be 0 or 2..16 and window a positive multiple of 4, got {lookahead}, {window}")
-    if jump50.numel() < 4:
-        lookahead = 0  # no 16 bytes to fetch a window from: the plain walk
     if jump50.data_ptr() % 16:
         raise ValueError("jump50 must start on a 16-byte boundary (the windows are bulk copies)")
     lib = _build.lib()
     G = tbl.shape[1]
-    if lib.bz2t_dec_chain_smem(G, lookahead, window) > SMEM_LIMIT:
-        raise ValueError(f"{G} groups with {lookahead} windows of {window} exceed the shared memory of a CTA")
+    if lib.bz2t_dec_chain_smem(G) > SMEM_LIMIT:
+        raise ValueError(f"{G} groups exceed the shared memory of a CTA")
     starts = torch.empty(B, G, dtype=torch.int32, device=jump50.device)
     misses = torch.empty(B, dtype=torch.int32, device=jump50.device)
     stream = torch.cuda.current_stream(jump50.device).cuda_stream
     err = lib.bz2t_dec_chain(
         jump50.data_ptr(), tbl.data_ptr(), n_groups.contiguous().data_ptr(),
-        B, T, nbc, G, lookahead, window, starts.data_ptr(), misses.data_ptr(), stream,
+        B, T, nbc, G, starts.data_ptr(), misses.data_ptr(), stream,
     )
     _build.check(err, "dec_chain")
     LAUNCHES["dec_chain"] += 1

@@ -34,7 +34,6 @@ from bz2tpu_torch.format import constants as C
 
 ALPHA = C.HUFFMAN_MAX_ALPHABET  # 258
 NTAB = C.HUFFMAN_MAX_TABLES  # 6
-CLUSTER = 16  # CTAs of the cluster that plans one block (1..16)
 _INF_W = 1 << 30
 _NEG = -(1 << 30)
 _I64 = torch.int64
@@ -219,7 +218,7 @@ def huffman_plan_ref(symbols, n_sym, n_in_use, seed, maxsel: int):
 
 
 def huffman_plan(symbols: torch.Tensor, n_sym: torch.Tensor, n_in_use: torch.Tensor,
-                 seed: torch.Tensor, maxsel: int, cluster: int = CLUSTER):
+                 seed: torch.Tensor, maxsel: int):
     """The refined multi-table Huffman plan of a batch of blocks.
 
     symbols: (B, S) int32 RLE2 symbols, -1 past each block's n_sym;
@@ -228,8 +227,7 @@ def huffman_plan(symbols: torch.Tensor, n_sym: torch.Tensor, n_in_use: torch.Ten
     (selectors, selector_mtf) (B, maxsel), lengths (B, 6, 258) and the
     iterations each block ran (B,), all int32; selectors are 0 past a
     block's selector count, and its selector_mtf there is the rank of
-    table 0 after the last selector. ``cluster`` (CUDA only) is the number
-    of CTAs that share one block.
+    table 0 after the last selector.
     """
     B = symbols.shape[0]
     if symbols.dtype != _I32 or symbols.dim() != 2:
@@ -245,8 +243,6 @@ def huffman_plan(symbols: torch.Tensor, n_sym: torch.Tensor, n_in_use: torch.Ten
         return huffman_plan_ref(symbols, n_sym, n_in_use, seed, maxsel)
     if symbols.device.type != "cuda":
         raise ValueError(f"unsupported device {symbols.device}")
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"cluster must be 1..16, got {cluster}")
     dev = symbols.device
     symbols = symbols.contiguous()
     seed32 = seed.to(_I32).contiguous()
@@ -256,7 +252,7 @@ def huffman_plan(symbols: torch.Tensor, n_sym: torch.Tensor, n_in_use: torch.Ten
     iters = torch.empty(B, dtype=_I32, device=dev)
     err = _build.lib().bz2t_huffman_plan(
         symbols.data_ptr(), n_sym.contiguous().data_ptr(), n_in_use.contiguous().data_ptr(),
-        seed32.data_ptr(), B, symbols.shape[1], maxsel, cluster,
+        seed32.data_ptr(), B, symbols.shape[1], maxsel,
         selectors.data_ptr(), selector_mtf.data_ptr(), lengths.data_ptr(), iters.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

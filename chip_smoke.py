@@ -13,9 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
      beside it), the MTF ranks of that batch (at the default chunk length
      and at 2,048, then timed over a sweep of chunk lengths), and its
      whole Huffman refinement (selectors, their MTF ranks and code
-     lengths; each block's iteration count printed; timed over cluster
-     sizes): results must be exactly equal (integer codec, tolerance 0),
-     all timed with CUDA events;
+     lengths; each block's iteration count printed): results must be
+     exactly equal (integer codec, tolerance 0), all timed with CUDA
+     events;
   3. the main path: bz2tpu_torch.compress(level=9) on a 16 MB mixed corpus
      (bz2tpu_torch.utils.corpus; the run says how much of its real-text
      part came from installed files and how much from the Markov fallback),
@@ -24,14 +24,15 @@ Phases (any failure exits non-zero; nothing is caught):
      count each batch's slowest block needs alone), not once per block and
      round, and the Huffman refinement once per batch; its first 2 MB
      byte-identical to the port's plain torch path on the CPU (which tests/test_torch_compress.py holds byte-identical to
-     the JAX package and its NumPy oracle); prints MB/s of the fastest of
-     three unclocked runs against the fastest of three stdlib bz2 runs on
-     the same bytes, then the per-stage split of a clocked run;
+     the JAX package and its NumPy oracle); prints MB/s of an unclocked run
+     against stdlib bz2 on the same bytes, then the per-stage split of a
+     second, clocked run;
   4. the fully-device path on the same corpus at level 9: (a) the dec_chain
      kernel against its plain loop at the shapes of the stream's batch
      with the most Huffman groups (exact), its ns per group of the longest
-     chain, and, in turns on the same inputs, the plain walk (lookahead 0)
-     against windows fetched ahead over a sweep of lookaheads and sizes;
+     chain, and on every batch of the port's and stdlib's 16 MB streams
+     the share of steps whose window missed (tools/time_dec_chain.py times
+     the kernel of two checkouts on those batches);
      (b) decompress_device of phase 3's stream and of stdlib's, each equal to the corpus and
      decoded on the card with no host fallback, timed against the host C
      decoder and stdlib bz2; (c) compress_device_intake of the corpus,
@@ -258,9 +259,6 @@ def main() -> int:
     stats["huffman_plan"] = compare(
         "huffman_plan", lambda: huffman_cuda.huffman_plan(*calls[0]),
         lambda: huffman_cuda.huffman_plan_ref(*calls[0]), 3, nbytes=plan_bytes, ops=plan_ops)
-    by_cluster = {c: round(cuda_ms(lambda: huffman_cuda.huffman_plan(*calls[0], cluster=c), 10), 4)
-                  for c in (4, 8, 16)}
-    print(f"huffman_plan by cluster size (ms, default {huffman_cuda.CLUSTER}): {by_cluster}")
     del calls, sym, seed
     del keys0, sorted0, rank0, keys1, field1, sorted1, last, cseq
 
@@ -307,15 +305,10 @@ def main() -> int:
     if launches["huffman_plan"] != n_batches:
         raise AssertionError(f"D2 launched {launches['huffman_plan']} times, not once per batch ({n_batches})")
 
-    # Host clocks on the card's machine vary from run to run (its cores are
-    # shared): both sides take the fastest of three unclocked runs.
-    port_runs = [port_s] + [timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL))[1] for _ in range(2)]
-    stock_runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        stock = stdlib_bz2.compress(corpus, LEVEL)
-        stock_runs.append(time.perf_counter() - t0)
-    port_s, stock_s = min(port_runs), min(stock_runs)
+
+    t0 = time.perf_counter()
+    stock = stdlib_bz2.compress(corpus, LEVEL)
+    stock_s = time.perf_counter() - t0
     if stdlib_bz2.decompress(out) != corpus:
         raise AssertionError("stdlib bz2 does not decode the port's stream to the input")
     if bz2tpu_torch.decompress(out) != corpus:
@@ -332,10 +325,8 @@ def main() -> int:
 
     mb = len(corpus) / 1e6
     print(f"level {LEVEL}, {len(corpus)} B in {len(blocks)} blocks:")
-    print(f"  port   {mb / port_s:.3f} MB/s ({port_s:.3f} s, unclocked, fastest of "
-          f"{', '.join(f'{t:.3f}' for t in port_runs)} s)  ratio {len(out) / len(corpus):.6f}")
-    print(f"  stdlib {mb / stock_s:.3f} MB/s ({stock_s:.3f} s, fastest of "
-          f"{', '.join(f'{t:.3f}' for t in stock_runs)} s)  ratio {len(stock) / len(corpus):.6f}")
+    print(f"  port   {mb / port_s:.3f} MB/s ({port_s:.3f} s, unclocked)  ratio {len(out) / len(corpus):.6f}")
+    print(f"  stdlib {mb / stock_s:.3f} MB/s ({stock_s:.3f} s)  ratio {len(stock) / len(corpus):.6f}")
     print(f"  port / stdlib: {stock_s / port_s:.2f}x")
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
     host = clocked_s - sum(timings.values())
@@ -363,25 +354,29 @@ def main() -> int:
     longest = int(n_groups.max())
     _, misses = dec_cuda.group_starts(jump50, tbl, n_groups, with_misses=True)
     print(f"dec_chain: {stats['dec_chain']['ms'] * 1e6 / longest:.1f} ns per group of the longest chain "
-          f"({longest} groups; lookahead {dec_cuda.LOOKAHEAD}, window {dec_cuda.WINDOW}), "
-          f"direct reads {misses.tolist()}")
-    # The same inputs through the plain walk (lookahead 0, the design before
-    # the windows) and other lookaheads and windows, in turns.
-    want_starts = dec_cuda.group_starts_ref(jump50, tbl, n_groups)
-    sweep = {}
-    for lookahead, window in ((0, 4), (dec_cuda.LOOKAHEAD, dec_cuda.WINDOW), (4, 512), (8, 256), (8, 1024),
-                              (12, 512), (16, 256), (16, 512), (0, 4), (dec_cuda.LOOKAHEAD, dec_cuda.WINDOW)):
-        run = lambda: dec_cuda.group_starts(jump50, tbl, n_groups, lookahead=lookahead, window=window)  # noqa: E731
-        if max_abs_err(run(), want_starts) != 0:
-            raise AssertionError(f"dec_chain at lookahead {lookahead}, window {window} disagrees with its plain loop")
-        ms = cuda_ms(run, 5)
-        sweep.setdefault((lookahead, window), []).append(round(ms * 1e6 / longest, 1))
-    print("dec_chain ns per group by (lookahead, window), in turns: "
-          + ", ".join(f"{k}: {v}" for k, v in sweep.items()))
-    walk, windows = sweep[(0, 4)], sweep[(dec_cuda.LOOKAHEAD, dec_cuda.WINDOW)]
-    print(f"dec_chain: the plain walk takes {sum(walk) / len(walk) / (sum(windows) / len(windows)):.2f}x "
-          f"the default's time a group")
+          f"({longest} groups), direct reads {misses.tolist()}")
     del bt, words, jump50, tbl, n_groups
+    # Every batch of both 16 MB streams: the share of the steps that read
+    # the map directly (their window missed), and the kernel's time on the
+    # batch where that share is largest.
+    worst = (-1.0, "", 0, 0.0)
+    for name, stream in (("port", out), ("stdlib", stock)):
+        parsed, _ = device_decode.parse_blocks(stream)
+        words = device_decode.stream_words(stream, dev)
+        shares = []
+        for k, (nbc, group) in enumerate(device_decode.batches(parsed)):
+            bt = device_decode.batch_tensors([parsed[i] for i in group], dev)
+            jump50 = huffman_dec.jump50_maps(words, bt["start_bit"], bt["lut"], bt["lut_idx"], nbc)
+            args = (jump50, bt["selectors"], bt["n_groups"])
+            share = int(dec_cuda.group_starts(*args, with_misses=True)[1].sum()) / int(bt["n_groups"].sum())
+            shares.append(round(share, 4))
+            if share > worst[0]:
+                worst = (share, name, k, cuda_ms(lambda: dec_cuda.group_starts(*args), 5) * 1e6 / int(args[2].max()))
+            del bt, jump50, args
+        print(f"dec_chain direct-read share by batch of {name}'s stream: {shares}")
+        del words
+    print(f"dec_chain on the batch with the largest direct-read share ({worst[1]}'s batch {worst[2]}, "
+          f"{worst[0]:.4f}): {worst[3]:.1f} ns per group of its longest chain")
 
     # (b) decode on the card: the port's stream and stdlib's, no host fallback.
     device_decode.decompress_device(stdlib_bz2.compress(head, LEVEL))  # warm-up

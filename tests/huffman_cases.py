@@ -34,6 +34,22 @@ def _deep_table_block() -> np.ndarray:
     return np.concatenate(parts + [[31]]).astype(np.int32)
 
 
+def _deep_tables_block(regions: int = 3, k: int = 21) -> np.ndarray:
+    """Regions of groups over one alphabet of k symbols, each region's
+    counts growing by 1.7x a symbol (rotated, so each region's common
+    symbols differ, and so does the seed table that takes its groups):
+    each of `regions` tables gets one region's groups, a tree 21 deep that
+    needs two cap retries."""
+    w = np.round(1.7 ** np.arange(k)).astype(np.int64)
+    parts = []
+    for r in range(regions):
+        counts = w[(np.arange(k) + k // regions * r) % k]
+        counts[np.argmax(counts)] += -counts.sum() % 50  # whole groups
+        a = np.repeat(np.arange(k), counts)
+        parts.append(a[np.argsort(np.arange(a.size) % (a.size // 50), kind="stable")])
+    return np.concatenate(parts + [[k]]).astype(np.int32)
+
+
 # case -> (blocks as (symbols, alpha), iterations each block runs or None).
 # No block stops at iteration 1: the fixed point needs i > 0.
 _CASES = {
@@ -49,6 +65,11 @@ _CASES = {
          (_synth_block(6, "mix", 1200, 3), 3), (_synth_block(7, "uniform", 2400, 258), 258)],
         None),
     "cap-retries": lambda: ([(_deep_table_block(), 32)], None),
+    "cap-retries-on-several-tables": lambda: ([(_deep_tables_block(), 22)], None),
+    "alphabets-4-42-130-257": lambda: (
+        [(_synth_block(8, "zipf", 3000, 4), 4), (_synth_block(9, "mix", 5000, 42), 42),
+         (_synth_block(10, "uniform", 8000, 130), 130), (_synth_block(11, "zipf", 12000, 257), 257)],
+        None),
 }
 PLAN_CASES = list(_CASES)
 

@@ -185,9 +185,11 @@ def test_huffman_plan_ref_matches_jax(case, monkeypatch):
     sym_t, n_sym_t, niu_t = map(torch.from_numpy, (sym, n_sym, n_in_use))
     n_groups = huffman_cuda.table_count(n_sym_t.long())
     seed = huffman.seed_lengths(huffman.block_histogram(sym_t), n_groups, niu_t.long() + 2)
-    depth_calls = []
+    depth_calls, refits = [], []
     real_depths = huffman_cuda.huffman_depths
     monkeypatch.setattr(huffman_cuda, "huffman_depths", lambda w, a: depth_calls.append(1) or real_depths(w, a))
+    real_lengths = huffman_cuda.code_lengths_ref
+    monkeypatch.setattr(huffman_cuda, "code_lengths_ref", lambda f, a: refits.append((f, a)) or real_lengths(f, a))
     # On the CPU the wrapper is the plain version.
     sel, sel_mtf, lengths, iters = huffman_cuda.huffman_plan(sym_t, n_sym_t, niu_t, seed, maxsel)
     want = jax.vmap(
@@ -210,3 +212,7 @@ def test_huffman_plan_ref_matches_jax(case, monkeypatch):
     if case == "cap-retries":
         assert len(depth_calls) > int(iters.max())  # one tree pass an iteration, plus retries
         assert int(lengths.max()) == 17
+    if case == "cap-retries-on-several-tables":
+        # Three of one iteration's table refits flatten their weights twice.
+        f, a = refits[0]
+        assert sum(_cap_retries(f[i].numpy(), int(a[i])) >= 2 for i in range(f.shape[0])) == 3

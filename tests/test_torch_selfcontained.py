@@ -1,5 +1,6 @@
 """bz2tpu_torch stands alone: no module of the port, and neither
-chip_smoke.py nor tools/profile_compress.py, imports bz2tpu or the JAX
+chip_smoke.py nor the port's tools/profile_compress.py and
+tools/time_dec_chain.py, imports bz2tpu or the JAX
 package's bench.py; importing them loads neither bz2tpu nor JAX, a fresh
 copy builds its host C library under its own build/ directory, and each
 copy of a bz2tpu host layer (the benchmark corpus included) agrees with
@@ -38,7 +39,7 @@ from test_randomised import craft_randomised_stream
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bz2tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_compress.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_compress.py", ROOT / "tools" / "time_dec_chain.py"]
 JAX_SIDE = ("bz2tpu", "bench")  # the JAX package and its benchmark script
 
 
