@@ -38,7 +38,23 @@ Phases (any failure exits non-zero; nothing is caught):
      decoder and stdlib bz2; (c) compress_device_intake of the corpus,
      decoded by stdlib bz2, byte-identical to the CPU path on its first
      2 MB, MB/s against stdlib, with every encode kernel launched;
-     then the peak device memory.
+     then the peak device memory;
+  5. files and streams on the card, in a temporary directory: (a) the
+     command line's default path, bz2tpu_torch.cli.main([file, "--size",
+     "9", "--metrics"]) in this process, which is compress_file through
+     StreamCompressor: its .bz2 byte-identical to phase 3's stream and
+     decoded by stdlib bz2, then --dec (decompress_file) back to the
+     corpus and --check; its MB/s beside phase 3's compress and phase
+     4b's decompress, its metrics line (rle1_split / device_encode /
+     stitch) and peak device memory beside phase 3's; K1 = K2 once per
+     doubling round of each batch the stream formed and D2 once per
+     such batch; (b) StreamCompressor fed 1 MB writes with a checkpoint
+     after each, dropped at 9 MB, resumed from the truncated sink in a
+     fresh instance: byte-identical to (a); (c) bz2tpu_torch.open(...,
+     "wb") on the card, read back with a seek and read1; (d) --backend
+     device byte-identical to phase 4c's stream, its --dec with
+     dec_chain launched, and --recover on a copy with one block's bytes
+     flipped salvaging every other block.
 Each phase's main path runs with every launch count set to 0 just before
 it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package. The line before
@@ -54,8 +70,12 @@ read once, outputs written once) over 3.35 TB/s, or its operations over
 from __future__ import annotations
 
 import bz2 as stdlib_bz2
+import contextlib
+import io
 import json
+import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -63,6 +83,7 @@ import torch
 LEVEL = 9
 CORPUS_BYTES = 16_000_000
 CHECK_BYTES = 2_000_000
+WRITE_BYTES, CHECKPOINT_CUT = 1_000_000, 9_000_000  # phase 5b: write size, where the compressor drops
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -141,6 +162,168 @@ KERNELS = {
     "dec_chain": ("bz2tpu_torch/csrc/dec_chain.cu", "bz2tpu/ops/huffman_dec.py:237"),
 }
 
+
+
+def cli_run(argv: list[str]) -> tuple[int, str, float]:
+    """bz2tpu_torch.cli.main(argv) in this process (the kernels stay
+    built): its exit code, what it wrote to stderr, and its seconds."""
+    from bz2tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, seconds = timed(lambda: cli.main(argv))
+    return rc, err.getvalue(), seconds
+
+
+def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_counts, phase3, card) -> None:
+    """Phase 5: the command line's file paths, a checkpoint resumed,
+    BZ2File, the device backend and --recover, on the 16 MB corpus."""
+    import bz2tpu_torch
+    from bz2tpu_torch import native
+    from bz2tpu_torch.ops import bwt_cuda, dec_cuda, huffman_cuda, mtf_cuda
+    from bz2tpu_torch.runtime import stream
+
+    mb = len(corpus) / 1e6
+    path = os.path.join(tmp, "corpus.dat")
+    with open(path, "wb") as f:
+        f.write(corpus)
+    # (a) the default path: compress_file through StreamCompressor. The
+    # batch sizes the stream forms are recorded on the way to the card.
+    sizes: list[int] = []
+    real_batch_tensors = stream._batch_tensors
+    stream._batch_tensors = lambda chunk, device: sizes.append(len(chunk)) or real_batch_tensors(chunk, device)
+    torch.cuda.reset_peak_memory_stats()
+    zero(*all_counts)
+    try:
+        rc, err, file_s = cli_run([path, "--size", str(LEVEL), "--metrics"])
+    finally:
+        stream._batch_tensors = real_batch_tensors
+    file_peak = torch.cuda.max_memory_allocated()
+    launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
+    if rc != 0:
+        raise AssertionError(f"the command line's compress exited {rc}: {err}")
+    metrics = json.loads([line for line in err.splitlines() if line.startswith("{")][-1])
+    print(f"compress_file metrics: {json.dumps(metrics)}")
+    with open(path + ".bz2", "rb") as f:
+        packed = f.read()
+    if packed != out:
+        raise AssertionError("the command line's .bz2 differs from phase 3's compress stream")
+    if stdlib_bz2.decompress(packed) != corpus:
+        raise AssertionError("stdlib bz2 does not decode the command line's .bz2")
+    print("command-line .bz2 byte-identical to phase 3's compress stream and decoded by stdlib bz2: True")
+    print(f"file-path kernel launches: {launches}; stream batches {sizes} ({metrics['batches']} batches, "
+          f"{metrics['blocks']} blocks)")
+    for name in ("bwt_sort", "bwt_rerank", "mtf_ranks", "huffman_plan"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the file path")
+    if sum(sizes) != len(blocks) or len(sizes) != metrics["batches"] or metrics["blocks"] != len(blocks):
+        raise AssertionError(f"the stream's batches {sizes} do not cover the {len(blocks)} blocks")
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    want_sorts = sum(max(block_rounds[s : s + n]) for s, n in zip(starts, sizes))
+    if not launches["bwt_sort"] == launches["bwt_rerank"] == want_sorts:
+        raise AssertionError(f"K1/K2 launched {launches['bwt_sort']}/{launches['bwt_rerank']} times on the file "
+                             f"path, not once per round of each of the stream's batches ({want_sorts})")
+    if launches["huffman_plan"] != metrics["batches"]:
+        raise AssertionError(f"D2 launched {launches['huffman_plan']} times on the file path, "
+                             f"not once per stream batch ({metrics['batches']})")
+    dec_path = os.path.join(tmp, "corpus.out")
+    rc, err, dec_file_s = cli_run([path + ".bz2", "--dec", "-o", dec_path])
+    with open(dec_path, "rb") as f:
+        if rc != 0 or f.read() != corpus:
+            raise AssertionError(f"the command line's --dec (decompress_file) did not give the corpus back: {err}")
+    rc, err, check_s = cli_run([path + ".bz2", "--check"])
+    if rc != 0:
+        raise AssertionError(f"the command line's --check failed: {err}")
+    stages = metrics["stages"]
+    print(f"  compress_file (cli, level {LEVEL}) {mb / file_s:.3f} MB/s ({file_s:.3f} s; metrics "
+          f"{metrics['seconds']} s: rle1_split {stages['rle1_split']} s, device_encode "
+          f"{stages['device_encode']} s, stitch {stages['stitch']} s, host outside the stages "
+          f"{metrics['seconds'] - sum(stages.values()):.3f} s); compress (phase 3) "
+          f"{mb / phase3['compress']:.3f} MB/s ({phase3['compress']:.3f} s)")
+    print(f"  decompress_file (cli --dec) {mb / dec_file_s:.3f} MB/s ({dec_file_s:.3f} s); decompress "
+          f"(phase 4b) {mb / phase3['decompress']:.3f} MB/s ({phase3['decompress']:.3f} s); --check "
+          f"{check_s:.3f} s")
+    print(f"  peak device memory: compress_file {file_peak} B ({file_peak / 2**30:.3f} GiB), compress "
+          f"(phase 3) {phase3['compress_peak']} B ({phase3['compress_peak'] / 2**30:.3f} GiB)")
+
+    # (b) checkpoint after each 1 MB write, drop the compressor at 9 MB,
+    # resume in a fresh one from the truncated sink.
+    step, cut = WRITE_BYTES, CHECKPOINT_CUT
+    sink = io.BytesIO()
+    sc = stream.StreamCompressor(sink, level=LEVEL)
+    for off in range(0, cut, step):
+        sc.write(corpus[off : off + step])
+        state = sc.checkpoint()
+    emitted = sink.getvalue()
+    del sc
+    keep = stream.StreamCompressor.state_sink_bytes(state)
+    resumed = io.BytesIO()
+    resumed.write(emitted[:keep])
+    sc = stream.StreamCompressor(resumed, state=state)
+    if sc.input_offset != cut:
+        raise AssertionError(f"the checkpoint resumes at {sc.input_offset}, not {cut}")
+    for off in range(cut, len(corpus), step):
+        sc.write(corpus[off : off + step])
+    sc.close()
+    if resumed.getvalue() != packed:
+        raise AssertionError("the resumed stream differs from the uninterrupted one")
+    print(f"checkpoint at {cut} B: blob {len(state)} B, sink cut to {keep} of {len(emitted)} B; "
+          f"resumed stream byte-identical: True")
+
+    # (c) BZ2File on the card, read back with a seek and read1.
+    bz_path = os.path.join(tmp, "bz2file.bz2")
+    with bz2tpu_torch.open(bz_path, "wb", level=LEVEL) as f:
+        f.write(corpus)
+    with open(bz_path, "rb") as f:
+        if f.read() != packed:
+            raise AssertionError("BZ2File's stream differs from compress's")
+    with bz2tpu_torch.open(bz_path, "rb") as f:
+        first = f.read(1000)
+        f.seek(len(corpus) // 2)
+        middle = f.read1(65536)
+        f.seek(0)
+        whole = f.read()
+    half = len(corpus) // 2
+    if first != corpus[:1000] or not middle or middle != corpus[half : half + len(middle)] or whole != corpus:
+        raise AssertionError("BZ2File does not read back what it wrote")
+    print(f"BZ2File: written on the card byte-identical to compress; read back, seek and read1 "
+          f"({len(middle)} B) equal: True")
+
+    # (d) the device backend, and --recover.
+    dev_bz2 = os.path.join(tmp, "device.bz2")
+    rc, err, dev_s = cli_run([path, "--backend", "device", "--size", str(LEVEL), "-o", dev_bz2])
+    with open(dev_bz2, "rb") as f:
+        if rc != 0 or f.read() != intake_out:
+            raise AssertionError(f"--backend device differs from phase 4c's compress_device_intake: {err}")
+    zero(*all_counts)
+    dev_out = os.path.join(tmp, "device.out")
+    rc, err, dev_dec_s = cli_run([dev_bz2, "--backend", "device", "--dec", "-o", dev_out])
+    with open(dev_out, "rb") as f:
+        if rc != 0 or f.read() != corpus:
+            raise AssertionError(f"--backend device --dec did not give the corpus back: {err}")
+    if dec_cuda.LAUNCHES["dec_chain"] <= 0:
+        raise AssertionError("kernel dec_chain was not launched by --backend device --dec")
+    print(f"--backend device: compress {mb / dev_s:.3f} MB/s byte-identical to compress_device_intake; "
+          f"--dec {mb / dev_dec_s:.3f} MB/s with dec_chain launched {dec_cuda.LAUNCHES['dec_chain']} times")
+    headers, _ = native.scan_blocks(packed)
+    if len(headers) != len(blocks):
+        raise AssertionError(f"{len(headers)} block markers in a stream of {len(blocks)} blocks")
+    k = 1
+    damaged = bytearray(packed)
+    damaged[headers[k] // 8 + 1000] ^= 0xFF
+    bad_path = os.path.join(tmp, "damaged.bz2")
+    with open(bad_path, "wb") as f:
+        f.write(damaged)
+    rec_path = os.path.join(tmp, "recovered.out")
+    rc, err, rec_s = cli_run([bad_path, "--recover", "-o", rec_path])
+    start = sum(b.raw_length for b in blocks[:k])
+    with open(rec_path, "rb") as f:
+        salvaged = f.read()
+    report = f"recovered {len(blocks) - 1}/{len(blocks)} blocks"
+    if rc != 0 or report not in err or salvaged != corpus[:start] + corpus[start + blocks[k].raw_length :]:
+        raise AssertionError(f"--recover did not salvage every block but block {k}: {err}")
+    print(f"--recover: {report} ({len(salvaged)} B, every block but the damaged one) in {rec_s:.3f} s")
+    print(f"  card: {card}")
 
 
 def main() -> int:
@@ -292,8 +475,10 @@ def main() -> int:
     all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES, dec_cuda.LAUNCHES)
     encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks", "huffman_plan")
     n_batches = -(-len(blocks) // DEFAULT_BATCH)
+    torch.cuda.reset_peak_memory_stats()
     zero(*all_counts)
     out, port_s = timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL))
+    compress_peak = torch.cuda.max_memory_allocated()
     launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
     print(f"main-path kernel launches: {launches}")
     for name in encode_kernels:
@@ -433,6 +618,12 @@ def main() -> int:
     print(f"  peak device memory of the intake compress: {torch.cuda.max_memory_allocated()} B")
     print(f"  card: {card}")
     launches["dec_chain"] = dec_launches
+
+    # -- 5. files and streams on the card -------------------------------------
+    block_rounds = [r for batch_rounds in rounds for r in batch_rounds]
+    with tempfile.TemporaryDirectory() as tmp:
+        files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_counts,
+                          {"compress": port_s, "decompress": host_s, "compress_peak": compress_peak}, card)
 
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -4,7 +4,6 @@ rules; the command line.
 """
 
 import bz2 as stdlib_bz2
-import functools
 import subprocess
 import sys
 
@@ -86,31 +85,28 @@ def test_import_and_help_load_no_jax():
     assert "usage" in proc.stdout and "--backend" in proc.stdout
 
 
-def test_cli_round_trip(rng, tmp_path, monkeypatch):
-    _cli_round_trip(rng, tmp_path, monkeypatch, "gpu")
+def test_cli_round_trip(rng, tmp_path):
+    _cli_round_trip(rng, tmp_path, "gpu")
 
 
-def test_cli_round_trip_device_backend(rng, tmp_path, monkeypatch):
-    _cli_round_trip(rng, tmp_path, monkeypatch, "device")
+def test_cli_round_trip_device_backend(rng, tmp_path):
+    _cli_round_trip(rng, tmp_path, "device")
 
 
-def _cli_round_trip(rng, tmp_path, monkeypatch, backend):
+def _cli_round_trip(rng, tmp_path, backend):
     from bz2tpu_torch.cli import main
-    from bz2tpu_torch.runtime import compressor, device_decode
 
-    # The command line runs on the card; here its compress and device
-    # decode run the CPU path.
-    for module, name in ((compressor, "compress"), (compressor, "compress_device_intake"),
-                         (device_decode, "decompress_device")):
-        monkeypatch.setattr(module, name, functools.partial(getattr(module, name), device="cpu"))
+    # The command line runs on the card by default; --device cpu takes the
+    # plain torch path (the gpu backend's file compress is compress_file).
+    cpu = ["--device", "cpu"]
     data = make_corpus(rng, "text", 4000)
     src = tmp_path / "in.txt"
     src.write_bytes(data)
-    assert main([str(src), "--size", "1", "--backend", backend]) == 0
+    assert main([str(src), "--size", "1", "--backend", backend, *cpu]) == 0
     packed = (tmp_path / "in.txt.bz2").read_bytes()
     assert packed == oracle_compress(data, level=1)
     out = tmp_path / "back.txt"
-    assert main([str(tmp_path / "in.txt.bz2"), "--dec", "-o", str(out), "--backend", backend]) == 0
+    assert main([str(tmp_path / "in.txt.bz2"), "--dec", "-o", str(out), "--backend", backend, *cpu]) == 0
     assert out.read_bytes() == data
-    assert main([str(tmp_path / "in.txt.bz2"), "--check", "--backend", backend]) == 0
-    assert main([str(tmp_path / "missing"), "--backend", backend]) == 2
+    assert main([str(tmp_path / "in.txt.bz2"), "--check", "--backend", backend, *cpu]) == 0
+    assert main([str(tmp_path / "missing"), "--backend", backend, *cpu]) == 2

@@ -1,6 +1,8 @@
 """bz2tpu_torch's CUDA kernels on the card: each kernel against its plain
 torch version (exact), the stages and the whole stream on the card against
-the CPU path, for compress, compress_device_intake and decompress_device.
+the CPU path, for compress (levels 1 and 5), compress_device_intake,
+decompress_device and the stream and file layer (compress_file, a
+checkpoint resumed, BZ2File).
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX and nothing from conftest, so on a machine with a card and without JAX
@@ -407,3 +409,46 @@ def test_compress_on_card_matches_cpu_and_counts_launches(cuda):
     assert huffman_cuda.LAUNCHES["huffman_plan"] == 1  # one batch, one launch
     assert out == bz2tpu_torch.compress(data, level=1, device="cpu")
     assert stdlib_bz2.decompress(out) == data
+
+
+def test_compress_level5_on_card_matches_cpu(cuda):
+    # Just over one level-5 block after RLE1 (tests/test_torch_levels.py
+    # holds the CPU path equal to bz2tpu at levels 2-8).
+    from bz2tpu_torch.format.constants import block_capacity
+
+    rng = np.random.default_rng(755)
+    data = rng.integers(0, 32, block_capacity(5) - 30_000, dtype=np.uint8).tobytes()
+    data += _corpus("text", 30_777, 756).tobytes()
+    out = bz2tpu_torch.compress(data, level=5)
+    assert out[:4] == b"BZh5"
+    assert out == bz2tpu_torch.compress(data, level=5, device="cpu")
+    assert stdlib_bz2.decompress(out) == data
+
+
+def test_streams_and_files_on_card_match_compress(cuda, tmp_path):
+    import io
+
+    from bz2tpu_torch.runtime.stream import StreamCompressor, compress_file
+
+    data = b"".join(_corpus(kind, 120_000, 41 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
+    want = bz2tpu_torch.compress(data, level=1, parallel=2)
+    src = tmp_path / "in.dat"
+    src.write_bytes(data)
+    compress_file(str(src), str(tmp_path / "out.bz2"), level=1, parallel=2)
+    assert (tmp_path / "out.bz2").read_bytes() == want
+    # Checkpoint after each 50 kB write, drop at 200 kB, resume on the card.
+    sink = io.BytesIO()
+    sc = StreamCompressor(sink, level=1, parallel=2, chunk_blocks=1)
+    for off in range(0, 200_000, 50_000):
+        sc.write(data[off : off + 50_000])
+        state = sc.checkpoint()
+    resumed = io.BytesIO(sink.getvalue()[: StreamCompressor.state_sink_bytes(state)])
+    resumed.seek(0, io.SEEK_END)
+    sc2 = StreamCompressor(resumed, parallel=2, chunk_blocks=1, state=state)
+    sc2.write(data[sc2.input_offset :])
+    sc2.close()
+    assert resumed.getvalue() == bz2tpu_torch.compress(data, level=1, device="cpu")
+    with bz2tpu_torch.open(tmp_path / "f.bz2", "wb", level=1) as f:
+        f.write(data)
+    with bz2tpu_torch.open(tmp_path / "f.bz2", "rb") as f:
+        assert f.read() == data

@@ -252,3 +252,98 @@ def test_decompress_matches(monkeypatch, case, fallback):
         assert issubclass(decoder.Bz2FormatError, (ValueError, OSError))
         return
     assert decompressor.decompress(stream) == want
+
+
+# --- copies of the stream, file and utils layer ------------------------
+
+
+def _atomic_run(atomic_output, target: Path) -> list:
+    """What atomic_output leaves behind: after a clean write, and after a
+    write that raised."""
+    seen = []
+    with atomic_output(str(target)) as f:
+        f.write(b"hello")
+        seen.append(target.exists())
+    seen.append((target.read_bytes(), sorted(p.name for p in target.parent.iterdir())))
+    with pytest.raises(RuntimeError):
+        with atomic_output(str(target)) as f:
+            f.write(b"partial")
+            raise RuntimeError("boom")
+    seen.append((target.read_bytes(), sorted(p.name for p in target.parent.iterdir())))
+    return seen
+
+
+def test_atomic_output_matches(tmp_path):
+    from bz2tpu.utils.atomic import atomic_output as jax_atomic_output
+    from bz2tpu_torch.utils.atomic import atomic_output
+
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    got = _atomic_run(atomic_output, tmp_path / "port" / "out.bin")
+    assert got == _atomic_run(jax_atomic_output, tmp_path / "jax" / "out.bin")
+    assert got == [False, (b"hello", ["out.bin"]), (b"hello", ["out.bin"])]
+
+
+def test_metrics_match():
+    from bz2tpu.utils import metrics as jax_metrics
+    from bz2tpu_torch.utils import metrics
+
+    runs = []
+    for mod in (metrics, jax_metrics):
+        m = mod.RunMetrics(op="compress", level=9)
+        m.input_bytes, m.output_bytes, m.blocks, m.batches = 16_000_000, 3_984_928, 16, 3
+        m.seconds = 0.4321
+        m.stage_seconds = {"rle1_split": 0.01234, "device_encode": 0.3, "stitch": 0.0456}
+        with m.stage("stitch"):
+            pass
+        m.stage_seconds["stitch"] = 0.0456  # the clock's reading differs between the two
+        runs.append((m.to_dict(), m.to_json(), m.ratio, m.mb_per_s))
+    assert runs[0] == runs[1]
+    for table in ({1: 2.0, 2: 3.6, 4: 6.4}, {2: 5.0}, {1: 0.0, 2: 1.0}, {}):
+        assert metrics.scaling_efficiency(table) == jax_metrics.scaling_efficiency(table)
+    c = metrics.Clock()
+    assert c.elapsed() >= 0
+
+
+def test_bit_stitcher_matches():
+    import io
+
+    from bz2tpu.runtime.stream import BitStitcher as JaxBitStitcher
+    from bz2tpu_torch.runtime.stream import BitStitcher
+
+    rng = np.random.default_rng(602)
+    # Zero-padded parts of 0-300 bits, empty ones and whole bytes among them.
+    parts = []
+    for nbits in [*rng.integers(0, 300, 40).tolist(), 0, 8, 16, 1, 7]:
+        buf = rng.integers(0, 256, (nbits + 7) // 8 + 2, dtype=np.uint8)
+        buf[(nbits + 7) // 8 :] = 0
+        if nbits % 8:
+            buf[nbits // 8] &= np.uint8((0xFF << (8 - nbits % 8)) & 0xFF)
+        parts.append((buf, nbits))
+    sinks = []
+    for cls in (BitStitcher, JaxBitStitcher):
+        sink = io.BytesIO()
+        st = cls(sink)
+        states = []
+        for data, nbits in parts:
+            st.append(data, nbits)
+            states.append((st._carry, st._carry_bits, st.bits_written, len(sink.getvalue())))
+        st.finish()
+        sinks.append((sink.getvalue(), states, st.bits_written))
+    assert sinks[0] == sinks[1]
+    want, total = bitio.concat_bitstreams(parts)
+    assert sinks[0][0] == want.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["text", "random", "runs", "zeros", "alternating"])
+def test_oracle_compress_matches(kind):
+    from bz2tpu.oracle import compress as jax_oracle_compress
+    from bz2tpu.oracle import decompress as jax_oracle_decompress
+    from bz2tpu_torch import oracle
+
+    rng = np.random.default_rng(603)
+    data = make_corpus(rng, kind, 12_000)
+    out = oracle.compress(data, level=1)
+    assert out == jax_oracle_compress(data, level=1)
+    assert oracle.decompress(out) == jax_oracle_decompress(out) == data
+    assert stdlib_bz2.decompress(out) == data
