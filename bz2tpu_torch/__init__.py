@@ -28,6 +28,9 @@ Layers:
   runtime/  -- compress and decompress drivers (compressor, device_decode,
                decompressor), streams with checkpoint/resume (stream),
                file objects (fileobj)
+  parallel/ -- the block mesh on torch.distributed: a batch's rows split
+               by rank, each rank's blocks encoded on its own device, the
+               stream stitched by collectives (not imported here)
   utils/    -- device selection and banner, metrics, tracing, atomic
                output, the benchmark corpus
   cli.py    -- the command line (python -m bz2tpu_torch, bz2tpu-torch)

@@ -1,8 +1,9 @@
-"""Bitstream emission: a batch of blocks -> one packed, concatenated word
-stream (torch).
+"""Bitstream emission: a batch of blocks -> packed word streams, one per
+block or one concatenated for the batch (torch).
 
 Port of bz2tpu/ops/emit.py (block_header_parts, _block_elements,
-pack_blocks_concat). Each block is a sequence of (value, bit-length)
+pack_block in its batch form, pack_blocks_concat, concat_block_words,
+words_to_bytes). Each block is a sequence of (value, bit-length)
 elements, header slots first, then the Huffman code of every symbol; the
 bit offset of an element is a prefix sum, and each element lands in its
 32-bit word (and spills into the next) by two index_add_ passes: bit
@@ -125,29 +126,24 @@ def block_elements(symbols, selectors, lengths, codes, hdr_vals, hdr_lens, *, ma
     return vals, lens, ok
 
 
-def pack_blocks_concat(symbols, selectors, lengths, codes, crcs, orig_ptrs, used,
+def _elements_and_ends(symbols, selectors, lengths, codes, crcs, orig_ptrs, used,
                        n_groups, n_selectors, selector_mtf, *, maxsel: int):
-    """Pack a batch's blocks into ONE concatenated word stream.
-
-    Arguments are the (B, ...) batch forms of bz2tpu.ops.emit.pack_block's
-    (no padding rows: every block is live). Returns (words (B*Wb + 1,)
-    int64 holding 32-bit MSB-first words, total_bits 0-dim int64,
-    block_bits (B,) int64), Wb = packed_words(S - 2) + header_words(maxsel).
-    """
-    B, S = symbols.shape
-    w_out = B * (packed_words(S - 2) + header_words(maxsel)) + 1
+    """Every block's elements and their inclusive bit ends within the
+    block (B, E); ``ends[:, -1]`` is each block's bit count."""
     hdr_vals, hdr_lens = block_header_parts(
         crcs, orig_ptrs, used, n_groups, n_selectors, selector_mtf, lengths, maxsel=maxsel
     )
     vals, lens, ok = block_elements(
         symbols, selectors, lengths, codes, hdr_vals, hdr_lens, maxsel=maxsel
     )
-    ends = torch.cumsum(lens, 1)
-    block_bits = ends[:, -1]
-    bases = torch.cumsum(block_bits, 0) - block_bits
-    total_bits = block_bits.sum()
-    offsets = bases[:, None] + ends - lens  # global bit offsets
+    return vals, lens, ok, torch.cumsum(lens, 1)
 
+
+def _scatter_elements(vals, lens, ok, ends, bases, w_out: int):
+    """Place each element at bit ``bases[b] + ends - lens`` of a flat word
+    buffer of ``w_out`` words: its high part in its first word, the bits
+    that spill in the next, by two index_add_ (bit ranges are disjoint)."""
+    offsets = bases[:, None] + ends - lens
     bitpos = offsets & 31
     spills = lens + bitpos > 32
     spill = (lens + bitpos - 32).clamp(0, 31)
@@ -155,7 +151,82 @@ def pack_blocks_concat(symbols, selectors, lengths, codes, crcs, orig_ptrs, used
     hi = torch.where(spills, vals >> spill, (vals << fit) & _M32)
     lo = torch.where(spills, (vals << (32 - spill).clamp(0, 31)) & _M32, 0)
     w0 = offsets >> 5
-    out = torch.zeros(w_out + 1, dtype=_I64, device=symbols.device)  # + trash
+    out = torch.zeros(w_out + 1, dtype=_I64, device=vals.device)  # + trash
     out.index_add_(0, torch.where(ok, w0, w_out).view(-1), hi.view(-1))
     out.index_add_(0, torch.where(ok, w0 + 1, w_out).view(-1), lo.view(-1))
-    return out[:w_out], total_bits, block_bits
+    return out[:w_out]
+
+
+def block_words(width: int, maxsel: int) -> int:
+    """Words of one block's packed stream at symbol width ``width``."""
+    return packed_words(width - 2) + header_words(maxsel)
+
+
+def pack_blocks(symbols, selectors, lengths, codes, crcs, orig_ptrs, used,
+                n_groups, n_selectors, selector_mtf, *, maxsel: int):
+    """Pack each block of a batch into its own row, starting at bit 0: the
+    batch form of bz2tpu.ops.emit.pack_block (vmapped there).
+
+    Returns (words (B, Wb) int64 holding 32-bit MSB-first words, zero past
+    each block's bits, block_bits (B,) int64), Wb = block_words(S, maxsel).
+    """
+    B, S = symbols.shape
+    wb = block_words(S, maxsel)
+    vals, lens, ok, ends = _elements_and_ends(
+        symbols, selectors, lengths, codes, crcs, orig_ptrs, used,
+        n_groups, n_selectors, selector_mtf, maxsel=maxsel,
+    )
+    bases = torch.arange(B, dtype=_I64, device=symbols.device) * (32 * wb)  # row starts
+    return _scatter_elements(vals, lens, ok, ends, bases, B * wb).view(B, wb), ends[:, -1]
+
+
+def pack_blocks_concat(symbols, selectors, lengths, codes, crcs, orig_ptrs, used,
+                       n_groups, n_selectors, selector_mtf, *, maxsel: int):
+    """Pack a batch's blocks into ONE concatenated word stream.
+
+    Arguments are the (B, ...) batch forms of bz2tpu.ops.emit.pack_block's
+    (no padding rows: every block is live). Returns (words (B*Wb + 1,)
+    int64 holding 32-bit MSB-first words, total_bits 0-dim int64,
+    block_bits (B,) int64), Wb = block_words(S, maxsel).
+    """
+    B, S = symbols.shape
+    vals, lens, ok, ends = _elements_and_ends(
+        symbols, selectors, lengths, codes, crcs, orig_ptrs, used,
+        n_groups, n_selectors, selector_mtf, maxsel=maxsel,
+    )
+    block_bits = ends[:, -1]
+    bases = torch.cumsum(block_bits, 0) - block_bits  # exclusive across blocks
+    words = _scatter_elements(vals, lens, ok, ends, bases, B * block_words(S, maxsel) + 1)
+    return words, block_bits.sum(), block_bits
+
+
+def concat_block_words(words, bits):
+    """Concatenate a batch's per-block streams at bit granularity
+    (bz2tpu.ops.emit.concat_block_words): block b's word j lands in
+    out[base_b + j] >> s and out[base_b + j + 1] << (32 - s), base and s
+    from the exclusive prefix sum of the bit counts; words past each
+    block's bits are zero, so neighbours never collide.
+
+    words (B, W) int64 (32-bit words, zero past bits[b]), bits (B,).
+    Returns (out (B*W + 1,) int64, total_bits 0-dim int64).
+    """
+    b, w = words.shape
+    w_out = b * w + 1
+    bits = bits.to(_I64)
+    offs = torch.cumsum(bits, 0) - bits
+    shift = (offs & 31)[:, None]
+    hi = words >> shift
+    lo = torch.where(shift > 0, (words << (32 - shift)) & _M32, 0)
+    j = torch.arange(w, dtype=_I64, device=words.device)[None, :]
+    live = j < ((bits + 31) >> 5)[:, None]
+    idx = (offs >> 5)[:, None] + j
+    out = torch.zeros(w_out + 1, dtype=_I64, device=words.device)  # + trash
+    out.index_add_(0, torch.where(live, idx, w_out).view(-1), hi.reshape(-1))
+    out.index_add_(0, torch.where(live, idx + 1, w_out).view(-1), lo.reshape(-1))
+    return out[:w_out], bits.sum()
+
+
+def words_to_bytes(words, total_bits: int) -> bytes:
+    """Big-endian bytes of packed 32-bit words, trimmed to ceil(bits / 8)."""
+    nbytes = (int(total_bits) + 7) // 8
+    return words[: (nbytes + 3) // 4].cpu().numpy().astype(">u4").tobytes()[:nbytes]

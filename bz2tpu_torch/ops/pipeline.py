@@ -2,7 +2,8 @@
 Huffman + pack/concat (torch).
 
 Port of bz2tpu/ops/pipeline.py's staged form (bwt_stage, mtf_plan_stage,
-emit_huff_pack_concat_stage). The JAX form quantises the emission width to
+emit_huff_pack_concat_stage, and emit_huff_pack_stage for the per-block
+form the block mesh uses). The JAX form quantises the emission width to
 eighths of the capacity because every distinct XLA shape is a compile;
 eager torch has none, so the batch emits at its exact max(n_sym). The
 output is bit-identical at any width >= max(n_sym).
@@ -15,12 +16,15 @@ import time
 import torch
 
 from bz2tpu_torch.ops.bwt import bwt_stage
-from bz2tpu_torch.ops.emit import pack_blocks_concat
+from bz2tpu_torch.ops.emit import pack_blocks, pack_blocks_concat
 from bz2tpu_torch.ops.huffman import huffman_assign, max_selectors
 from bz2tpu_torch.ops.mtf import mtf_rle2_plan as mtf_plan_stage
 from bz2tpu_torch.ops.mtf import rle2_out
 
-__all__ = ["bwt_stage", "mtf_plan_stage", "emit_huff_pack_concat_stage", "encode_batch"]
+__all__ = [
+    "bwt_stage", "mtf_plan_stage", "emit_huff_pack_stage", "emit_huff_pack_concat_stage",
+    "encode_batch", "encode_blocks",
+]
 
 
 class StageClock:
@@ -48,15 +52,21 @@ def _lap(clock: StageClock | None, name: str) -> None:
         clock.lap(name)
 
 
-def emit_huff_pack_concat_stage(plan, orig_ptr, crcs, *, width: int, clock: StageClock | None = None):
-    """RLE2 emission + Huffman planning at ``width`` (>= max n_sym), then
-    the whole batch packs into one concatenated stream. Returns (words
-    (B*Wb + 1,) int64, total_bits 0-dim int64, block_bits (B,))."""
+def _emit_huff(plan, *, width: int, clock: StageClock | None):
+    """RLE2 emission and Huffman planning at ``width`` (>= max n_sym)."""
     maxsel = max_selectors(width - 2)
     sym = rle2_out(plan, width)
     _lap(clock, "rle2_out")
     hp = huffman_assign(sym, plan["n_sym"], plan["n_in_use"], maxsel)
     _lap(clock, "huffman")
+    return sym, hp, maxsel
+
+
+def emit_huff_pack_concat_stage(plan, orig_ptr, crcs, *, width: int, clock: StageClock | None = None):
+    """RLE2 emission + Huffman planning at ``width`` (>= max n_sym), then
+    the whole batch packs into one concatenated stream. Returns (words
+    (B*Wb + 1,) int64, total_bits 0-dim int64, block_bits (B,))."""
+    sym, hp, maxsel = _emit_huff(plan, width=width, clock=clock)
     out = pack_blocks_concat(
         sym, hp["selectors"], hp["lengths"], hp["codes"], crcs, orig_ptr,
         plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
@@ -64,6 +74,25 @@ def emit_huff_pack_concat_stage(plan, orig_ptr, crcs, *, width: int, clock: Stag
     )
     _lap(clock, "pack")
     return out
+
+
+def emit_huff_pack_stage(plan, orig_ptr, crcs, *, width: int, clock: StageClock | None = None):
+    """The same at ``width``, each block packed into its own row
+    (bz2tpu.ops.pipeline.emit_huff_pack_stage). Returns the dict of
+    n_groups, n_selectors, words (B, Wb) int64, total_bits (B,) int64 and
+    meta (B, 6) int32: orig_ptr, n_sym, n_in_use, n_groups, n_selectors,
+    total_bits."""
+    sym, hp, maxsel = _emit_huff(plan, width=width, clock=clock)
+    words, total_bits = pack_blocks(
+        sym, hp["selectors"], hp["lengths"], hp["codes"], crcs, orig_ptr,
+        plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
+        maxsel=maxsel,
+    )
+    _lap(clock, "pack")
+    meta = torch.stack([t.to(torch.int32) for t in (
+        orig_ptr, plan["n_sym"], plan["n_in_use"], hp["n_groups"], hp["n_selectors"], total_bits)], 1)
+    return {"n_groups": hp["n_groups"], "n_selectors": hp["n_selectors"],
+            "words": words, "total_bits": total_bits, "meta": meta}
 
 
 def encode_batch(blocks, ns, crcs, timings: dict | None = None):
@@ -84,3 +113,27 @@ def encode_batch(blocks, ns, crcs, timings: dict | None = None):
         plan, orig_ptr, crcs, width=width, clock=clock
     )
     return words, total_bits
+
+
+def encode_blocks(blocks, ns, crcs, timings: dict | None = None):
+    """Encode a batch of RLE1 blocks, each into its own complete bitstream
+    (bz2tpu.ops.pipeline.encode_blocks / encode_blocks_staged).
+
+    blocks (B, cap) uint8, ns (B,) int32 (a padding row has ns = 1 and
+    encodes as a one-byte block), crcs (B,) int64 (uint32 values).
+    Returns the JAX pytree's keys: words (B, Wb) int64 of 32-bit MSB-first
+    words, each block from bit 0 of its row; total_bits (B,) int64;
+    orig_ptr, n_sym, n_in_use, n_groups, n_selectors (B,); used (B, 256);
+    meta (B, 6) int32. Wb follows the batch's max(n_sym), not the
+    capacity, so rows hold fewer zero words past the bits than JAX's.
+    ``timings`` as in encode_batch.
+    """
+    clock = None if timings is None else StageClock(timings, blocks.device)
+    last, orig_ptr = bwt_stage(blocks, ns)
+    _lap(clock, "bwt")
+    plan = mtf_plan_stage(last, ns)
+    width = int(plan["n_sym"].max())
+    _lap(clock, "mtf")
+    out = emit_huff_pack_stage(plan, orig_ptr, crcs, width=width, clock=clock)
+    out.update(orig_ptr=orig_ptr, used=plan["used"], n_sym=plan["n_sym"], n_in_use=plan["n_in_use"])
+    return out

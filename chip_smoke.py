@@ -54,7 +54,20 @@ Phases (any failure exits non-zero; nothing is caught):
      "wb") on the card, read back with a seek and read1; (d) --backend
      device byte-identical to phase 4c's stream, its --dec with
      dec_chain launched, and --recover on a copy with one block's bytes
-     flipped salvaging every other block.
+     flipped salvaging every other block;
+  6. the block mesh (bz2tpu_torch.parallel) on the same corpus at level 9,
+     split into one batch padded to a multiple of the rank count, encoded
+     with encode_blocks_sharded and stitched with stitch_stream_shard:
+     (a) one rank in this process, no process group, on cuda:0: its
+     stream byte-identical to phase 3's, K3 and D2 launched once for the
+     one 16-block batch, K1 = K2 once per doubling round of each group of
+     8 blocks that bwt_stage sorts together (ops/bwt.slot_limit); (b) two
+     ranks on the one card, each a process running this script with
+     --mesh-rank, in a gloo group (NCCL refuses two ranks on one card):
+     each encodes its 8 rows and both stitch the whole stream by
+     collectives; rank 0's stream byte-identical to phase 3's, each rank's
+     launches those of its own rows. A rank that fails, or that has not
+     finished within MESH_TIMEOUT_S, fails the run with its stderr's tail.
 Each phase's main path runs with every launch count set to 0 just before
 it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package. The line before
@@ -84,6 +97,7 @@ LEVEL = 9
 CORPUS_BYTES = 16_000_000
 CHECK_BYTES = 2_000_000
 WRITE_BYTES, CHECKPOINT_CUT = 1_000_000, 9_000_000  # phase 5b: write size, where the compressor drops
+MESH_RANKS, MESH_TIMEOUT_S = 2, 300  # phase 6b: processes on the one card, their wall-clock limit
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -323,6 +337,197 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     if rc != 0 or report not in err or salvaged != corpus[:start] + corpus[start + blocks[k].raw_length :]:
         raise AssertionError(f"--recover did not salvage every block but block {k}: {err}")
     print(f"--recover: {report} ({len(salvaged)} B, every block but the damaged one) in {rec_s:.3f} s")
+    print(f"  card: {card}")
+
+
+def mesh_run(corpus: bytes, mesh) -> dict:
+    """Phase 6's path on one rank: split the corpus, pad its blocks to a
+    batch the mesh divides, encode this rank's rows, and stitch the whole
+    stream (ranks meet at a barrier first, so the stitch's time is its
+    own). Returns the stream, this rank's bits and seconds by step."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from bz2tpu_torch.parallel import encode_blocks_sharded, pad_batch
+    from bz2tpu_torch.parallel.stitch import stitch_stream_shard
+    from bz2tpu_torch.runtime.compressor import split_blocks
+
+    seconds = {}
+    t0 = time.perf_counter()
+    blocks = split_blocks(corpus, LEVEL)
+    n_rows = pad_batch(len(blocks), mesh.size)
+    batch = np.zeros((n_rows, max(b.data.size for b in blocks)), np.uint8)
+    ns = np.ones(n_rows, np.int32)  # padding rows: one-byte blocks
+    crcs = np.zeros(n_rows, np.int64)
+    for i, blk in enumerate(blocks):
+        batch[i, : blk.data.size] = blk.data
+        ns[i], crcs[i] = blk.data.size, blk.crc
+    seconds["split"] = time.perf_counter() - t0
+    out, seconds["encode"] = timed(lambda: encode_blocks_sharded(batch, ns, crcs, mesh=mesh))
+    rows = mesh.rows(n_rows)
+    live = max(0, min(rows.stop - rows.start, len(blocks) - rows.start))
+    bits = out["total_bits"].clone()
+    bits[live:] = 0
+    crcs_t = torch.from_numpy(crcs[rows]).to(mesh.device)
+    t0 = time.perf_counter()
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
+    seconds["wait"] = time.perf_counter() - t0
+    steps: dict[str, float] = {}
+    (stream, _), seconds["stitch"] = timed(
+        lambda: stitch_stream_shard(out["words"], bits, crcs_t, live, LEVEL, mesh=mesh, timings=steps))
+    return {"stream": stream, "rows": [rows.start, rows.stop], "live": live,
+            "bits": int(bits.sum()), "seconds": seconds, "stitch_steps": steps}
+
+
+def mesh_rank(argv: list[str]) -> int:
+    """Phase 6b's worker: one rank of a gloo group on the card, which reads
+    the corpus from DIR and writes its stream and a JSON report there.
+
+        python3 chip_smoke.py --mesh-rank R --mesh-port PORT --mesh-dir DIR
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from bz2tpu_torch import _build
+    from bz2tpu_torch.ops import bwt_cuda, huffman_cuda, mtf_cuda
+    from bz2tpu_torch.parallel import block_mesh
+    from bz2tpu_torch.parallel.distributed import initialize
+
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, tmp = int(args["--mesh-rank"]), args["--mesh-dir"]
+    t0 = time.perf_counter()
+    initialize(coordinator_address=f"127.0.0.1:{args['--mesh-port']}", num_processes=MESH_RANKS,
+               process_id=rank, backend="gloo", timeout_s=120)
+    mesh = block_mesh()
+    _build.lib()  # phase 1 built it: this loads it
+    with open(os.path.join(tmp, "corpus.dat"), "rb") as f:
+        corpus = f.read()
+    ready_s = time.perf_counter() - t0
+    zero(bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES)
+    run = mesh_run(corpus, mesh)
+    report = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "ready_s": ready_s,
+              "launches": {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES},
+              "peak_bytes": torch.cuda.max_memory_allocated(mesh.device),
+              **{k: v for k, v in run.items() if k != "stream"}}
+    with open(os.path.join(tmp, f"stream.{rank}"), "wb") as f:
+        f.write(run["stream"])
+    with open(os.path.join(tmp, f"report.{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase3, card) -> None:
+    """Phase 6: the block mesh, one rank in this process, then two ranks
+    in their own processes on the one card."""
+    import socket
+    import subprocess
+
+    from bz2tpu_torch.ops import bwt, bwt_cuda, huffman_cuda, mtf_cuda
+    from bz2tpu_torch.parallel import block_mesh
+
+    mb = len(corpus) / 1e6
+    n_blocks = len(blocks)
+
+    def batch_launches(lo: int, hi: int) -> dict:
+        """The kernels' launches for an encode of rows lo..hi: bwt_stage
+        sorts slot_limit(nb) blocks at a time (8 at level 9), each group
+        once per round of its slowest block; K3 and D2 once a batch."""
+        hi = min(hi, n_blocks)  # padding rows (one byte) never add rounds
+        step = bwt.slot_limit(max(b.data.size for b in blocks[lo:hi]).bit_length())
+        sorts = sum(max(block_rounds[i : min(i + step, hi)]) for i in range(lo, hi, step))
+        return {"bwt_sort": sorts, "bwt_rerank": sorts, "mtf_ranks": 1, "huffman_plan": 1}
+
+    # (a) one rank, no process group.
+    mesh = block_mesh()
+    if (mesh.group, mesh.size, mesh.device) != (None, 1, torch.device("cuda", 0)):
+        raise AssertionError(f"block_mesh() without a group is {mesh}, not one rank on cuda:0")
+    torch.cuda.reset_peak_memory_stats()
+    zero(*all_counts)
+    run, one_s = timed(lambda: mesh_run(corpus, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
+    sec = ", ".join(f"{k} {v:.3f} s" for k, v in run["seconds"].items())
+    sec += " (" + ", ".join(f"{k} {v:.4f}" for k, v in run["stitch_steps"].items()) + ")"
+    print(f"6a one rank, {run['rows'][1]} rows in one batch: launches {launches}")
+    print(f"  mesh compress (1 rank) {mb / one_s:.3f} MB/s ({one_s:.3f} s: {sec}); compress (phase 3) "
+          f"{mb / phase3['compress']:.3f} MB/s ({phase3['compress']:.3f} s)")
+    print(f"  peak device memory {peak} B ({peak / 2**30:.3f} GiB); compress (phase 3) "
+          f"{phase3['compress_peak']} B ({phase3['compress_peak'] / 2**30:.3f} GiB)")
+    if run["stream"] != out:
+        raise AssertionError("the one-rank mesh's stream differs from phase 3's compress stream")
+    print("  stream byte-identical to phase 3's: True")
+    want = batch_launches(0, run["rows"][1])
+    if launches != want:
+        raise AssertionError(f"the one-rank mesh launched {launches}, not {want} (one batch of {n_blocks} blocks)")
+    del run
+
+    # (b) two ranks on the one card, a gloo group of two processes.
+    with open(os.path.join(tmp, "corpus.dat"), "wb") as f:
+        f.write(corpus)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.empty_cache()
+    logs = [(open(os.path.join(tmp, f"rank{r}.out"), "wb"), open(os.path.join(tmp, f"rank{r}.err"), "wb"))
+            for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                               "--mesh-port", str(port), "--mesh-dir", tmp], stdout=o, stderr=e)
+             for r, (o, e) in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        wall = time.perf_counter() - t0
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for o, e in logs:
+            o.close()
+            e.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        with open(os.path.join(tmp, f"rank{r}.err"), "rb") as f:
+            print(f"rank {r} exited {procs[r].returncode}; its stderr ends:\n"
+                  f"{f.read()[-4000:].decode(errors='replace')}", file=sys.stderr)
+    if failed:
+        raise AssertionError(f"phase 6b: ranks {failed} failed or did not finish within {MESH_TIMEOUT_S} s")
+    reports = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"report.{r}.json")) as f:
+            reports.append(json.load(f))
+        with open(os.path.join(tmp, f"stream.{r}"), "rb") as f:
+            if f.read() != out:
+                raise AssertionError(f"rank {r}'s stitched stream differs from phase 3's compress stream")
+    print(f"6b {MESH_RANKS} ranks on one card (gloo): both ranks' streams byte-identical to phase 3's: True")
+    for rep in reports:
+        lo, hi = rep["rows"]
+        if rep["live"] == 0:
+            raise AssertionError(f"rank {rep['rank']} holds only padding rows {lo}-{hi - 1}")
+        want = batch_launches(lo, hi)
+        if rep["launches"] != want:
+            raise AssertionError(f"rank {rep['rank']} (rows {lo}-{hi}) launched {rep['launches']}, not {want}")
+        sec = ", ".join(f"{k} {v:.3f} s" for k, v in rep["seconds"].items())
+        sec += " (" + ", ".join(f"{k} {v:.4f}" for k, v in rep["stitch_steps"].items()) + ")"
+        print(f"  rank {rep['rank']} on {rep['device']}: rows {lo}-{hi - 1}, launches {rep['launches']}; "
+              f"group and library ready {rep['ready_s']:.3f} s; {sec}; peak {rep['peak_bytes']} B")
+    total_k1 = sum(rep["launches"]["bwt_sort"] for rep in reports)
+    seg_words = [(rep["bits"] + 31) // 32 + 1 for rep in reports]
+    print(f"  K1 launches over the ranks {total_k1} (phase 3's compress: {phase3['k1']})")
+    if all(hi - lo == phase3["batch"] for lo, hi in (rep["rows"] for rep in reports)) and total_k1 != phase3["k1"]:
+        raise AssertionError("the ranks' rows are phase 3's batches, but their K1 launches do not add up to its")
+    print(f"  segment all-gather: {MESH_RANKS} x {max(seg_words)} 32-bit words = "
+          f"{MESH_RANKS * max(seg_words) * 4} B received per rank; stitch "
+          f"{', '.join(format(rep['seconds']['stitch'], '.4f') for rep in reports)} s by rank")
+    print(f"  wall {wall:.3f} s from the processes' start to both exits ({mb / wall:.3f} MB/s); "
+          f"no scaling figure: the {MESH_RANKS} ranks share one card")
     print(f"  card: {card}")
 
 
@@ -625,6 +830,12 @@ def main() -> int:
         files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_counts,
                           {"compress": port_s, "decompress": host_s, "compress_peak": compress_peak}, card)
 
+    # -- 6. the block mesh ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts,
+                         {"compress": port_s, "compress_peak": compress_peak, "k1": launches["bwt_sort"],
+                          "batch": DEFAULT_BATCH}, card)
+
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **stats[name]}
@@ -643,4 +854,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_rank(sys.argv[1:]) if "--mesh-rank" in sys.argv else main())

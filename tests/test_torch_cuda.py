@@ -1,8 +1,9 @@
 """bz2tpu_torch's CUDA kernels on the card: each kernel against its plain
 torch version (exact), the stages and the whole stream on the card against
 the CPU path, for compress (levels 1 and 5), compress_device_intake,
-decompress_device and the stream and file layer (compress_file, a
-checkpoint resumed, BZ2File).
+decompress_device, the stream and file layer (compress_file, a
+checkpoint resumed, BZ2File) and the per-block encode of the block mesh
+(encode_blocks, pack_blocks then concat_block_words).
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX and nothing from conftest, so on a machine with a card and without JAX
@@ -452,3 +453,38 @@ def test_streams_and_files_on_card_match_compress(cuda, tmp_path):
         f.write(data)
     with bz2tpu_torch.open(tmp_path / "f.bz2", "rb") as f:
         assert f.read() == data
+
+
+def test_pack_blocks_then_concat_equals_fused_pack_on_card(cuda):
+    from bz2tpu_torch.ops import emit, pipeline
+
+    corpus = make_mixed_corpus(8 * 900_000)
+    blocks_t, ns, crcs = _batch_tensors(split_blocks(corpus, 9)[:8], cuda)
+    last, orig_ptr = bwt_stage(blocks_t, ns)
+    plan = pipeline.mtf_plan_stage(last, ns)
+    width = int(plan["n_sym"].max())
+    per = pipeline.emit_huff_pack_stage(plan, orig_ptr, crcs, width=width)
+    fused, fused_total, fused_bits = pipeline.emit_huff_pack_concat_stage(plan, orig_ptr, crcs, width=width)
+    cat, total = emit.concat_block_words(per["words"], per["total_bits"])
+    _equal(per["total_bits"], fused_bits)
+    assert int(total) == int(fused_total)
+    _equal(cat, fused)
+
+
+def test_encode_blocks_on_card_matches_cpu(cuda):
+    # 16 rows of text, 64 to 2,047 bytes, and one padding row (ns = 1).
+    from bz2tpu_torch.ops.pipeline import encode_blocks
+
+    rng = np.random.default_rng(18)
+    blocks = np.zeros((17, 2048), np.uint8)
+    ns = np.ones(17, np.int32)
+    for i in range(16):
+        d = _corpus("text", int(rng.integers(64, 2048)), 100 + i)
+        blocks[i, : d.size] = d
+        ns[i] = d.size
+    args = (torch.from_numpy(blocks), torch.from_numpy(ns), torch.from_numpy(rng.integers(0, 1 << 32, 17)))
+    want = encode_blocks(*args)
+    got = encode_blocks(*(a.to(cuda) for a in args))
+    assert set(got) == set(want)
+    for key in want:
+        _equal(got[key].cpu(), want[key])

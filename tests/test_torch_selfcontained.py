@@ -1,6 +1,6 @@
 """bz2tpu_torch stands alone: no module of the port, and neither
-chip_smoke.py nor the port's tools/profile_compress.py and
-tools/time_dec_chain.py, imports bz2tpu or the JAX
+chip_smoke.py nor the port's tools/profile_compress.py,
+tools/time_dec_chain.py and tests/torch_parallel_worker.py, imports bz2tpu or the JAX
 package's bench.py; importing them loads neither bz2tpu nor JAX, a fresh
 copy builds its host C library under its own build/ directory, and each
 copy of a bz2tpu host layer (the benchmark corpus included) agrees with
@@ -39,7 +39,8 @@ from test_randomised import craft_randomised_stream
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bz2tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_compress.py", ROOT / "tools" / "time_dec_chain.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_compress.py", ROOT / "tools" / "time_dec_chain.py",
+    ROOT / "tests" / "torch_parallel_worker.py"]
 JAX_SIDE = ("bz2tpu", "bench")  # the JAX package and its benchmark script
 
 
@@ -282,6 +283,16 @@ def test_atomic_output_matches(tmp_path):
     got = _atomic_run(atomic_output, tmp_path / "port" / "out.bin")
     assert got == _atomic_run(jax_atomic_output, tmp_path / "jax" / "out.bin")
     assert got == [False, (b"hello", ["out.bin"]), (b"hello", ["out.bin"])]
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 8])
+def test_pad_batch_matches(n_shards):
+    from bz2tpu.parallel.mesh import pad_batch as jax_pad_batch
+    from bz2tpu_torch.parallel.mesh import pad_batch
+
+    for n_blocks in (0, 1, 7, 8, 9, 16, 17):
+        assert pad_batch(n_blocks, n_shards) == jax_pad_batch(n_blocks, n_shards)
+        assert pad_batch(n_blocks, n_shards, 3) == jax_pad_batch(n_blocks, n_shards, 3)
 
 
 def test_metrics_match():
