@@ -7,7 +7,8 @@ copies of the host layers it needs (format, oracle, the native C splitter
 and decoder, the host decompressor, the stream and file layer). Kernels
 are CUDA C++ for sm_90a under ``csrc/``, built with nvcc at first use (see
 _build.py); the host C library builds with cc into ``build/bz2tpu_torch/``
-at first import (native/).
+(or ``BZ2TPU_TORCH_CACHE_DIR``) at first import (native/), unless
+``BZ2TPU_TORCH_AOT_DIR`` names a shipped build to install (utils/aot.py).
 
     bz2tpu_torch.compress(data, level=9)                -> bytes  (device pipeline)
     bz2tpu_torch.compress_device_intake(data, level=9)  -> bytes  (intake on the device too)
@@ -32,7 +33,8 @@ Layers:
                by rank, each rank's blocks encoded on its own device, the
                stream stitched by collectives (not imported here)
   utils/    -- device selection and banner, metrics, tracing, atomic
-               output, the benchmark corpus
+               output, the benchmark corpus, the build cache and its
+               prime pass (buildenv), shippable builds (aot)
   cli.py    -- the command line (python -m bz2tpu_torch, bz2tpu-torch)
 """
 

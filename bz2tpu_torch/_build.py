@@ -4,10 +4,16 @@ package's compile cache, bz2tpu/utils/jaxenv.py).
 At first use, every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``,
 one ``nvcc`` per source, all started together, and the objects link into
 ONE shared library with a plain C interface, which ``ctypes`` loads. The
-library lands in ``build/bz2tpu_torch/`` at the root of the checkout, named
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once. A missing ``nvcc`` or a failed build raises:
-there is no fallback for a CUDA tensor.
+library lands in the build cache, ``build/bz2tpu_torch/`` at the root of
+the checkout unless ``BZ2TPU_TORCH_CACHE_DIR`` names another
+(utils/buildenv.py), named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads at once. A missing
+``nvcc`` or a failed build raises: there is no fallback for a CUDA tensor.
+
+The library has a plain C interface and links the CUDA runtime statically
+(nvcc's default), so it depends on the toolkit that built it, never on
+torch's ABI: a shipped build (utils/aot.py) keys on the sources and
+flags, not on the torch version.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# The build cache; utils/buildenv.setup_build_cache re-points it.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "bz2tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -47,6 +54,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the nvcc run, None if cached
+compiler_runs = 0  # nvcc processes this process started (compiles and the link)
 
 
 def nvcc_path() -> str | None:
@@ -70,8 +78,13 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_name() -> str:
+    """The kernel library's file name in the build cache."""
+    return f"libbz2tpu_torch_{_digest()}.so"
+
+
 def _compile(out: Path) -> None:
-    global build_seconds
+    global build_seconds, compiler_runs
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
@@ -86,9 +99,11 @@ def _compile(out: Path) -> None:
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(_sources(), objs)
         ]
+        compiler_runs += len(procs)
         logs = [proc.communicate()[0] for proc in procs]
         failed = [(src.name, log) for src, proc, log in zip(_sources(), procs, logs) if proc.returncode]
         if not failed:
+            compiler_runs += 1
             link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                                   capture_output=True, text=True)
             if link.returncode:
@@ -106,9 +121,12 @@ def _compile(out: Path) -> None:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     global _lib
+    from bz2tpu_torch.utils.buildenv import setup_build_cache
+
+    setup_build_cache()
     with _lock:
         if _lib is None:
-            out = BUILD_DIR / f"libbz2tpu_torch_{_digest()}.so"
+            out = BUILD_DIR / library_name()
             if not out.exists():
                 _compile(out)
             handle = ctypes.CDLL(str(out))

@@ -5,6 +5,8 @@
     python -m bz2tpu_torch FILE.bz2 --check              CRC check
     python -m bz2tpu_torch damaged.bz2 --recover         salvage blocks
     cat f | python -m bz2tpu_torch - > f.bz2             stdin -> stdout
+    python -m bz2tpu_torch --prime [--size N]            fill the build cache
+    python -m bz2tpu_torch --export-aot DIR [--size N]   ship a build
 
 (``bz2tpu-torch`` is the same tool as a console script.) As in bz2tpu:
 input files are kept unless --rm is given; several files process in one
@@ -20,7 +22,9 @@ compresses on the card after a host intake and decodes on the host;
 decompress_device); ``--backend oracle`` is the NumPy codec. ``--device``
 names the card or the CPU explicitly: ``cuda`` (the default) fails where
 there is no card, and nothing falls back to the CPU. The host decode,
---recover and the oracle take no device.
+--recover and the oracle take no device. --prime and --export-aot
+(utils/buildenv.py, utils/aot.py) are the counterparts of bz2tpu's: they
+build the port's two libraries, where bz2tpu fills an XLA cache.
 """
 
 from __future__ import annotations
@@ -37,10 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
         epilog=(
             "examples: bz2tpu-torch FILE | bz2tpu-torch FILE.bz2 --dec | "
             "bz2tpu-torch FILE.bz2 --check | bz2tpu-torch damaged.bz2 --recover | "
-            "cat f | bz2tpu-torch - > f.bz2. "
-            "bz2tpu's --prime and --export-aot fill XLA caches and have no "
-            "counterpart here: the CUDA kernels build once with nvcc at first "
-            "use (bz2tpu_torch/_build.py) and are reused from build/bz2tpu_torch/."
+            "cat f | bz2tpu-torch - > f.bz2 | bz2tpu-torch --export-aot DIR. "
+            "The CUDA kernels (nvcc) and the host C library (cc) build once into "
+            "the build cache, BZ2TPU_TORCH_CACHE_DIR or build/bz2tpu_torch/; "
+            "BZ2TPU_TORCH_AOT_DIR=DIR installs an exported build there instead."
         ),
     )
     from bz2tpu_torch import __version__
@@ -81,6 +85,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", action="store_true", help="print JSON metrics to stderr")
     p.add_argument("--banner", action="store_true", help="print device info to stderr")
     p.add_argument("--trace", metavar="DIR", help="write a torch.profiler trace to DIR")
+    p.add_argument(
+        "--prime", action="store_true",
+        help="build the kernel and host libraries into the build cache and run "
+        "both compress paths once at --size on --device (one-time; spares later "
+        "processes the compilers), then exit",
+    )
+    p.add_argument(
+        "--export-aot", metavar="DIR",
+        help="build both libraries into DIR, prime against them at --size and "
+        "write a manifest (a shippable artifact: later runs with "
+        "BZ2TPU_TORCH_AOT_DIR=DIR start with no compiler run), then exit",
+    )
     return p
 
 
@@ -96,6 +112,11 @@ def main(argv: list[str] | None = None) -> int:
     if not 1 <= args.size <= 9:
         print("error: --size must be 1..9", file=sys.stderr)
         return 2
+    if args.prime and args.export_aot:
+        print("error: --prime and --export-aot are exclusive", file=sys.stderr)
+        return 2
+    if args.prime or args.export_aot:
+        return _build_cache(args)
     if not args.files:
         print("error: no input files (or '-' for stdin)", file=sys.stderr)
         return 2
@@ -115,6 +136,29 @@ def main(argv: list[str] | None = None) -> int:
         return worst
     args.file = args.files[0]
     return _run_one(args)
+
+
+def _build_cache(args) -> int:
+    """--prime or --export-aot: one pass per process, whatever files were
+    listed (they are not processed)."""
+    if args.files:
+        mode = "--prime" if args.prime else "--export-aot"
+        print(f"note: {mode} builds and exits; listed files ignored", file=sys.stderr)
+    levels, batch = (args.size,), args.parallel or None
+    try:
+        if args.prime:
+            from bz2tpu_torch.utils.buildenv import prime
+
+            prime(levels=levels, batch=batch, device=args.device)
+            return 0
+        from bz2tpu_torch.utils.aot import export_artifact
+
+        n = export_artifact(args.export_aot, levels=levels, batch=batch, device=args.device)
+    except Exception as e:  # noqa: BLE001 - CLI boundary
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(f"exported {n} libraries to {args.export_aot}", file=sys.stderr)
+    return 0
 
 
 def _write_result(result: bytes, out_path: str, use_stdio: bool) -> None:

@@ -1,12 +1,15 @@
 """The port's host C core (a copy of bz2tpu/native/_bz2dec.c): stream and
 block decoder, block scan, RLE1 splitter, inverse RLE1 and CRC32.
 
-At first import, ``_bz2dec.c`` compiles with ``cc`` (~1 s) into
-``build/bz2tpu_torch/`` at the root of the checkout, beside the CUDA
-library of ``_build.py``, named by a hash of the source and the command, and
-loads from there; nothing is written inside a package directory. Where no
-compiler is found or the build fails, ``HAVE_NATIVE`` is False and the
-callers take their NumPy paths (bz2tpu_torch.oracle), as bz2tpu's do.
+At first import, ``_bz2dec.c`` compiles with ``cc`` (~1 s) into the build
+cache beside the CUDA library of ``_build.py`` (``build/bz2tpu_torch/`` at
+the root of the checkout, or ``BZ2TPU_TORCH_CACHE_DIR``), named by a hash
+of the source and the command, and loads from there; nothing is written
+inside a package directory. A shipped build (``BZ2TPU_TORCH_AOT_DIR``,
+utils/aot.py) is installed into the cache first, so that it spares this
+compile. Where no compiler is found or the build fails, ``HAVE_NATIVE`` is
+False and the callers take their NumPy paths (bz2tpu_torch.oracle), as
+bz2tpu's do.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ import subprocess
 import sysconfig
 from pathlib import Path
 
-from bz2tpu_torch._build import BUILD_DIR
+from bz2tpu_torch import _build
 
 SOURCE = Path(__file__).resolve().parent / "_bz2dec.c"
+compiler_runs = 0  # cc processes this process started
 
 
 def _command(out: Path) -> list[str]:
@@ -30,17 +34,24 @@ def _command(out: Path) -> list[str]:
             "-I", sysconfig.get_path("include"), str(SOURCE), "-o", str(out)]
 
 
-def library_path() -> Path:
-    """Where the built extension lives: the name hashes the source and the
-    compile command, so an edited source rebuilds."""
+def source_digest() -> str:
+    """A hash of the source and the compile command."""
     h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(_command(Path("out"))).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the built extension lives in the build cache: the name carries
+    source_digest(), so an edited source rebuilds."""
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    return BUILD_DIR / f"_bz2dec_{h.hexdigest()[:16]}{suffix}"
+    return _build.BUILD_DIR / f"_bz2dec_{source_digest()}{suffix}"
 
 
 def _compile(out: Path) -> None:
+    global compiler_runs
     out.parent.mkdir(parents=True, exist_ok=True)
+    compiler_runs += 1
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(_command(tmp), check=True, capture_output=True, timeout=120)
@@ -60,6 +71,12 @@ def _load():
     loader.exec_module(module)
     return module
 
+
+# The build cache is set up here, after library_path is defined (installing
+# a shipped build reads it) and before the build below.
+from bz2tpu_torch.utils.buildenv import setup_build_cache  # noqa: E402
+
+setup_build_cache()
 
 try:  # pragma: no cover - exercised via the public wrappers
     _impl = _load()

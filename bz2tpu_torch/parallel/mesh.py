@@ -81,7 +81,7 @@ def pad_batch(n_blocks: int, n_shards: int, batch_per_shard: int | None = None) 
     return ((n_blocks + n_shards - 1) // n_shards) * n_shards
 
 
-def encode_blocks_sharded(blocks, ns, crcs=None, *, mesh: BlockMesh) -> dict:
+def encode_blocks_sharded(blocks, ns, crcs=None, *, mesh: BlockMesh, timings: dict | None = None) -> dict:
     """This rank's shard of a batch encode.
 
     blocks (B, cap) uint8, ns (B,) and crcs (B,) (uint32 values; zeros
@@ -89,7 +89,7 @@ def encode_blocks_sharded(blocks, ns, crcs=None, *, mesh: BlockMesh) -> dict:
     fields) are the same global batch on every rank, on any device or as
     arrays; B is divisible by the mesh size, and padding rows have ns = 1.
     The rank moves its ``mesh.rows(B)`` to ``mesh.device`` and returns
-    ops/pipeline.encode_blocks of them.
+    ops/pipeline.encode_blocks of them (``timings`` as there).
     """
     rows = mesh.rows(len(blocks))
     if crcs is None:
@@ -98,6 +98,7 @@ def encode_blocks_sharded(blocks, ns, crcs=None, *, mesh: BlockMesh) -> dict:
         torch.as_tensor(blocks)[rows].to(mesh.device),
         torch.as_tensor(ns)[rows].to(mesh.device, torch.int32),
         torch.as_tensor(crcs)[rows].to(mesh.device, torch.int64),
+        timings=timings,
     )
 
 

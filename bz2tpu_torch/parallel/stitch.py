@@ -56,7 +56,7 @@ def _shift_segment(words: torch.Tensor, shift: int) -> torch.Tensor:
     return out
 
 
-def _as_int32(words: torch.Tensor) -> torch.Tensor:
+def as_int32(words: torch.Tensor) -> torch.Tensor:
     """32-bit words held in int64 -> the same bit patterns as int32."""
     return (words - ((words >> 31) << 32)).to(torch.int32)
 
@@ -99,7 +99,7 @@ def stitch_stream_shard(words, bits, crcs, n_blocks_local: int, level: int, *, m
     lap("exchange")
 
     seg = _shift_segment(cat[:n_words], offsets[mesh.rank] & 31)
-    segs, _ = all_gather_padded(_as_int32(seg), mesh, shapes=[[e[3]] for e in every])
+    segs, _ = all_gather_padded(as_int32(seg), mesh, shapes=[[e[3]] for e in every])
     lap("segments")
     out = torch.zeros((total_bits + 31) // 32 + 3, dtype=torch.int64, device=dev)
     for off, s, e in zip(offsets, segs, every):

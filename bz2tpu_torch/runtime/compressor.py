@@ -7,12 +7,18 @@ CRC run on the host; each batch of at most ``parallel`` blocks goes through
 ops/pipeline.encode_batch on the device, and its packed words come back in
 one device-to-host copy. Batches are not padded to a fixed size and there
 is no dispatch-ahead: eager torch has no per-shape compile to amortise.
+With ``BZ2TPU_DEVICE_STITCH=0`` each block comes back on its own
+(_encode_batches, the path that drives the block mesh in a multi-process
+job) and the host stitches them, as in bz2tpu.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bz2tpu_torch import native
 from bz2tpu_torch.format import constants as C
@@ -21,10 +27,18 @@ from bz2tpu_torch.format.crc32 import stream_crc
 from bz2tpu_torch.native import HAVE_NATIVE  # noqa: F401 - whether split_blocks runs in C
 from bz2tpu_torch.oracle.encoder import Rle1Block, rle1_split
 from bz2tpu_torch.ops.intake import chunk_capacity, device_intake
-from bz2tpu_torch.ops.pipeline import encode_batch
+from bz2tpu_torch.ops.pipeline import StageClock, encode_batch, encode_blocks
 from bz2tpu_torch.utils.device import resolve_device
 
 DEFAULT_BATCH = 8
+
+# Default on: each batch's blocks concatenate on the device and come back as
+# one bitstream. BZ2TPU_DEVICE_STITCH=0 takes the per-block path
+# (_encode_batches), the only one that drives the block mesh. The name and
+# its meaning are bz2tpu's, so one switch sets both packages.
+_DEVICE_STITCH = os.environ.get("BZ2TPU_DEVICE_STITCH", "1") == "1"
+
+META = ("orig_ptr", "n_sym", "n_in_use", "n_groups", "n_selectors", "total_bits")
 
 Part = tuple[np.ndarray, int]  # (bytes, valid bits) of one piece of the stream
 
@@ -81,15 +95,93 @@ def _finish(parts: list[Part], block_crcs: list[int]) -> bytes:
     return packed.tobytes()
 
 
-def _batch_tensors(chunk, device):
-    """(B, max n) uint8 blocks, (B,) int32 ns and (B,) int64 CRCs on device."""
+def _batch_tensors(chunk, device, n_rows: int | None = None):
+    """(B, max n) uint8 blocks, (B,) int32 ns and (B,) int64 CRCs on device.
+    B is ``n_rows`` where given: rows past the chunk are padding, one zero
+    byte each (ns = 1, CRC 0)."""
+    n_rows = n_rows or len(chunk)
     width = max(blk.data.size for blk in chunk)
-    buf = np.zeros((len(chunk), width), dtype=np.uint8)
+    buf = np.zeros((n_rows, width), dtype=np.uint8)
+    ns = np.ones(n_rows, dtype=np.int32)
+    crcs = np.zeros(n_rows, dtype=np.int64)
     for i, blk in enumerate(chunk):
         buf[i, : blk.data.size] = blk.data
-    ns = np.array([blk.data.size for blk in chunk], dtype=np.int32)
-    crcs = np.array([blk.crc for blk in chunk], dtype=np.int64)
+        ns[i], crcs[i] = blk.data.size, blk.crc
     return tuple(torch.from_numpy(a).to(device) for a in (buf, ns, crcs))
+
+
+def _mesh_batch(n_blocks: int, parallel: int | None) -> int:
+    """bz2tpu's batch for a stream of ``n_blocks``: ``parallel`` or
+    DEFAULT_BATCH, and for a shorter stream the next power of two at or
+    above ``n_blocks``, capped at ``parallel``. The port neither pads nor
+    quantises its batches (there is no compile to amortise), so this only
+    decides, as in bz2tpu, whether the mesh divides the batch."""
+    batch = parallel or DEFAULT_BATCH
+    if n_blocks < batch:
+        b = 1
+        while b < max(n_blocks, 1):
+            b <<= 1
+        batch = min(b, parallel) if parallel else b
+    return batch
+
+
+def _encode_batches(blocks, batch: int, device, timings: dict | None = None):
+    """Encode ``blocks`` in batches of ``batch``; yield one row a block, in
+    stream order, with bz2tpu's keys: orig_ptr, n_sym, n_in_use, n_groups,
+    n_selectors and total_bits (ints), and words (uint32: the block's
+    complete bitstream, header included, in ceil(total_bits / 32) words).
+
+    Port of bz2tpu.runtime.compressor._encode_batches. Where the default
+    process group has S > 1 ranks and S divides ``batch``, each batch goes
+    through the block mesh: padded to a multiple of S with one-byte rows,
+    each rank encodes its rows on its own device (a "cuda" device with no
+    index means the rank's card, parallel/mesh.block_mesh) and gather_blocks
+    brings every rank's rows to every rank. Every rank must pass the same
+    blocks and batch, and gets the same rows. Each batch's words come back
+    in one copy, each row cut to its own bits and the rows packed end to
+    end as int32 bit patterns, so that the all-gather and the copy carry the
+    compressed bytes and not the rows' zero padding; the scalars in one
+    copy more. ``timings`` as in ops/pipeline.encode_blocks, plus "gather"
+    (the mesh's all-gather) and "fetch" (the cut and the copies).
+    """
+    from bz2tpu_torch.parallel.mesh import block_mesh, encode_blocks_sharded, gather_blocks, pad_batch
+    from bz2tpu_torch.parallel.stitch import as_int32
+
+    dev = resolve_device(device)
+    n_dev = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    mesh = None
+    if n_dev > 1 and batch % n_dev == 0:
+        mesh = block_mesh(device=None if dev.type == "cuda" and dev.index is None else dev)
+        dev = mesh.device
+    for base in range(0, len(blocks), batch):
+        chunk = blocks[base : base + batch]
+        if mesh is None:
+            out = encode_blocks(*_batch_tensors(chunk, dev), timings=timings)
+            live = len(chunk)
+        else:
+            n_rows = pad_batch(len(chunk), mesh.size)
+            out = encode_blocks_sharded(*_batch_tensors(chunk, "cpu", n_rows), mesh=mesh, timings=timings)
+            rows = mesh.rows(n_rows)
+            live = max(0, min(rows.stop - rows.start, len(chunk) - rows.start))
+        clock = None if timings is None else StageClock(timings, dev)
+        words = out["words"]
+        n_words = (out["meta"][:, 5].to(torch.int64) + 31) >> 5
+        keep = torch.arange(words.shape[1], device=dev) < n_words[:, None]
+        keep[live:] = False  # padding rows carry no words
+        shard = {"meta": out["meta"], "words": as_int32(words[keep])}
+        if mesh is not None:
+            shard = gather_blocks(shard, mesh)
+            if clock is not None:
+                clock.lap("gather")
+        meta = shard["meta"].cpu().numpy()
+        flat = shard["words"].cpu().numpy().view(np.uint32)
+        if clock is not None:
+            clock.lap("fetch")
+        ends = np.cumsum((meta[: len(chunk), 5].astype(np.int64) + 31) >> 5)
+        for i, row_words in enumerate(np.split(flat, ends[:-1])):
+            row = {k: int(meta[i, j]) for j, k in enumerate(META)}
+            row["words"] = row_words
+            yield row
 
 
 def compress(
@@ -103,16 +195,24 @@ def compress(
 
     ``device`` defaults to CUDA and raises where there is none; pass
     ``device="cpu"`` for the plain torch path. ``timings``, when given,
-    collects per-stage seconds (see ops/pipeline.encode_batch).
+    collects per-stage seconds (see ops/pipeline.encode_batch). With
+    ``_DEVICE_STITCH`` off (``BZ2TPU_DEVICE_STITCH=0``) the blocks come
+    back one by one (_encode_batches), through the block mesh where a
+    process group's ranks divide bz2tpu's batch: every rank then calls
+    this with the same arguments and returns the same stream.
     """
     dev = resolve_device(device)
     arr = _as_array(data)
     _check_level(level)
     blocks = split_blocks(arr, level)
-    batch = parallel or DEFAULT_BATCH
     parts = [_stream_header(level)]
-    for base in range(0, len(blocks), batch):
-        parts.append(_encode(*_batch_tensors(blocks[base : base + batch], dev), timings=timings))
+    if _DEVICE_STITCH:
+        batch = parallel or DEFAULT_BATCH
+        for base in range(0, len(blocks), batch):
+            parts.append(_encode(*_batch_tensors(blocks[base : base + batch], dev), timings=timings))
+    else:
+        for row in _encode_batches(blocks, _mesh_batch(len(blocks), parallel), dev, timings):
+            parts.append((row["words"].astype(">u4").view(np.uint8), row["total_bits"]))
     return _finish(parts, [b.crc for b in blocks])
 
 

@@ -13,7 +13,10 @@ Each round splits the pending bytes on the host (runtime/compressor.
 split_blocks), holds back the trailing block, and sends the rest through
 the port's device driver in batches of ``parallel`` blocks, one
 device-to-host copy a batch; the finished batch's bits go to the
-stitcher.
+stitcher. With ``BZ2TPU_DEVICE_STITCH=0`` (compressor._DEVICE_STITCH) the
+blocks come back one by one (compressor._encode_batches, through the block
+mesh where a process group's ranks divide the batch) and the stitcher
+takes each, as in bz2tpu.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from bz2tpu_torch.format import constants as C
 from bz2tpu_torch.format.bitio import BitWriter
 from bz2tpu_torch.format.crc32 import stream_crc_fold
+from bz2tpu_torch.runtime import compressor
 from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH, _batch_tensors, _encode, split_blocks
 from bz2tpu_torch.utils.device import resolve_device
 
@@ -239,16 +243,24 @@ class StreamCompressor:
             blocks = blocks[:-1]
         raw_consumed = sum(b.raw_length for b in blocks)
         self._pending = self._pending[raw_consumed:] if not final else b""
-        for base in range(0, len(blocks), self._batch):
-            chunk = blocks[base : base + self._batch]
-            with self._stage("device_encode"):
-                row, nbits = _encode(*_batch_tensors(chunk, self._device))
-            with self._stage("stitch"):
-                self._stitcher.append(row, nbits)
-            for blk in chunk:
-                self._s_crc = stream_crc_fold(self._s_crc, blk.crc)
-                self.n_blocks += 1
-            self._n_batches += 1
+        if compressor._DEVICE_STITCH:
+            for base in range(0, len(blocks), self._batch):
+                with self._stage("device_encode"):
+                    row, nbits = _encode(*_batch_tensors(blocks[base : base + self._batch], self._device))
+                with self._stage("stitch"):
+                    self._stitcher.append(row, nbits)
+        else:
+            rows = compressor._encode_batches(blocks, self._batch, self._device)
+            for _ in blocks:
+                with self._stage("device_encode"):
+                    row = next(rows)
+                with self._stage("stitch"):
+                    # The device words are the complete block bitstream.
+                    self._stitcher.append(row["words"].astype(">u4").view(np.uint8), row["total_bits"])
+        for blk in blocks:
+            self._s_crc = stream_crc_fold(self._s_crc, blk.crc)
+            self.n_blocks += 1
+        self._n_batches += (len(blocks) + self._batch - 1) // self._batch
         return raw_consumed
 
 

@@ -67,7 +67,25 @@ Phases (any failure exits non-zero; nothing is caught):
      each encodes its 8 rows and both stitch the whole stream by
      collectives; rank 0's stream byte-identical to phase 3's, each rank's
      launches those of its own rows. A rank that fails, or that has not
-     finished within MESH_TIMEOUT_S, fails the run with its stderr's tail.
+     finished within MESH_TIMEOUT_S, fails the run with its stderr's tail;
+     (c) the per-block path (compressor._DEVICE_STITCH off, what
+     BZ2TPU_DEVICE_STITCH=0 selects) in this process: compress and
+     compress_file of the corpus, each byte-identical to phase 3's stream,
+     K1 = K2 once per doubling round of each batch and K3 and D2 once per
+     batch, MB/s beside phase 3's compress; (d) two ranks on the one card in
+     a gloo group (--mesh-mode compress), each calling bz2tpu_torch.compress
+     itself with the per-block path on, which reaches the block mesh: both
+     streams byte-identical to phase 3's, each rank's launches those of its
+     rows of each batch, the seconds and bytes of the all-gather;
+  7. cold start: three fresh processes (this script with --cold-start),
+     each with an empty BZ2TPU_TORCH_CACHE_DIR in a temporary directory,
+     each compressing the corpus's first 2 MB into a stream that must equal
+     phase 3's and decode with stdlib bz2: (a) no artifact, so nvcc and cc
+     build both libraries; (b) export_artifact into a temporary directory;
+     (c) that artifact through BZ2TPU_TORCH_AOT_DIR, with no nvcc and no cc
+     run. For (a) and (c) the wall from the process's start to the stream
+     returned, and the child's own split (import, kernel library, first
+     compress). A child that fails or outlives COLD_TIMEOUT_S fails the run.
 Each phase's main path runs with every launch count set to 0 just before
 it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package. The line before
@@ -97,7 +115,8 @@ LEVEL = 9
 CORPUS_BYTES = 16_000_000
 CHECK_BYTES = 2_000_000
 WRITE_BYTES, CHECKPOINT_CUT = 1_000_000, 9_000_000  # phase 5b: write size, where the compressor drops
-MESH_RANKS, MESH_TIMEOUT_S = 2, 300  # phase 6b: processes on the one card, their wall-clock limit
+MESH_RANKS, MESH_TIMEOUT_S = 2, 300  # phases 6b and 6d: processes on the one card, their wall-clock limit
+COLD_TIMEOUT_S = 300  # phase 7: each fresh process's wall-clock limit
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -380,11 +399,55 @@ def mesh_run(corpus: bytes, mesh) -> dict:
             "bits": int(bits.sum()), "seconds": seconds, "stitch_steps": steps}
 
 
-def mesh_rank(argv: list[str]) -> int:
-    """Phase 6b's worker: one rank of a gloo group on the card, which reads
-    the corpus from DIR and writes its stream and a JSON report there.
+def encode_launches() -> dict:
+    from bz2tpu_torch.ops import bwt_cuda, huffman_cuda, mtf_cuda
 
-        python3 chip_smoke.py --mesh-rank R --mesh-port PORT --mesh-dir DIR
+    return {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
+
+
+def compress_rank(corpus: bytes) -> tuple[dict, bytes]:
+    """Phase 6d's path on one rank: bz2tpu_torch.compress itself on the
+    per-block path, which takes the block mesh because the group's ranks
+    divide its batch. A warm-up, an unclocked run (its launches) and a
+    clocked one (its stages, "gather" the all-gather).
+    Returns the report and the stream."""
+    import bz2tpu_torch
+    from bz2tpu_torch.ops import bwt_cuda, huffman_cuda, mtf_cuda
+    from bz2tpu_torch.parallel import mesh as mesh_module
+    from bz2tpu_torch.runtime import compressor
+
+    compressor._DEVICE_STITCH = False
+    received, sharded = [], []
+    real_gather, real_encode = mesh_module.all_gather_padded, mesh_module.encode_blocks_sharded
+
+    def gather(t, mesh, shapes=None):
+        parts, shapes = real_gather(t, mesh, shapes)
+        received.append(sum(p.numel() * p.element_size() for p in parts))
+        return parts, shapes
+
+    mesh_module.all_gather_padded = gather
+    mesh_module.encode_blocks_sharded = lambda *a, **k: sharded.append(1) or real_encode(*a, **k)
+    bz2tpu_torch.compress(corpus, level=LEVEL)  # warm-up: the allocator's pool at the corpus's sizes
+    zero(bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES)
+    received.clear()
+    sharded.clear()
+    stream, seconds = timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL))
+    report = {"launches": encode_launches(), "compress_s": seconds, "received_bytes": sum(received),
+              "sharded_encodes": len(sharded)}
+    steps: dict[str, float] = {}
+    clocked, report["clocked_s"] = timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL, timings=steps))
+    if clocked != stream:
+        raise AssertionError("the clocked compress differs from the unclocked one")
+    report["steps"] = steps
+    return report, stream
+
+
+def mesh_rank(argv: list[str]) -> int:
+    """Phases 6b and 6d's worker: one rank of a gloo group on the card,
+    which reads the corpus from DIR and writes its stream and a JSON report
+    there. MODE "stitch" (6b) runs mesh_run, "compress" (6d) compress_rank.
+
+        python3 chip_smoke.py --mesh-rank R --mesh-port PORT --mesh-dir DIR --mesh-mode MODE
     """
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -397,7 +460,7 @@ def mesh_rank(argv: list[str]) -> int:
     from bz2tpu_torch.parallel.distributed import initialize
 
     args = dict(zip(argv[::2], argv[1::2]))
-    rank, tmp = int(args["--mesh-rank"]), args["--mesh-dir"]
+    rank, tmp, mode = int(args["--mesh-rank"]), args["--mesh-dir"], args["--mesh-mode"]
     t0 = time.perf_counter()
     initialize(coordinator_address=f"127.0.0.1:{args['--mesh-port']}", num_processes=MESH_RANKS,
                process_id=rank, backend="gloo", timeout_s=120)
@@ -406,77 +469,43 @@ def mesh_rank(argv: list[str]) -> int:
     with open(os.path.join(tmp, "corpus.dat"), "rb") as f:
         corpus = f.read()
     ready_s = time.perf_counter() - t0
-    zero(bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES)
-    run = mesh_run(corpus, mesh)
-    report = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "ready_s": ready_s,
-              "launches": {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES},
-              "peak_bytes": torch.cuda.max_memory_allocated(mesh.device),
-              **{k: v for k, v in run.items() if k != "stream"}}
-    with open(os.path.join(tmp, f"stream.{rank}"), "wb") as f:
-        f.write(run["stream"])
-    with open(os.path.join(tmp, f"report.{rank}.json"), "w") as f:
+    report = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "ready_s": ready_s}
+    if mode == "stitch":
+        zero(bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES)
+        run = mesh_run(corpus, mesh)
+        stream = run.pop("stream")
+        report.update(launches=encode_launches(), **run)
+    else:
+        more, stream = compress_rank(corpus)
+        report.update(more)
+    report["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
+    with open(os.path.join(tmp, f"stream.{mode}.{rank}"), "wb") as f:
+        f.write(stream)
+    with open(os.path.join(tmp, f"report.{mode}.{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()
     return 0
 
 
-def block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase3, card) -> None:
-    """Phase 6: the block mesh, one rank in this process, then two ranks
-    in their own processes on the one card."""
+def start_ranks(tmp: str, mode: str, out: bytes) -> tuple[list[dict], float]:
+    """MESH_RANKS copies of this script on the one card, a gloo group in
+    ``mode`` (see mesh_rank); each rank's stream must equal ``out``. Returns
+    the ranks' reports and the wall from their start to both exits. A rank
+    that fails, or has not finished within MESH_TIMEOUT_S, fails the run
+    with its stderr's tail."""
     import socket
     import subprocess
 
-    from bz2tpu_torch.ops import bwt, bwt_cuda, huffman_cuda, mtf_cuda
-    from bz2tpu_torch.parallel import block_mesh
-
-    mb = len(corpus) / 1e6
-    n_blocks = len(blocks)
-
-    def batch_launches(lo: int, hi: int) -> dict:
-        """The kernels' launches for an encode of rows lo..hi: bwt_stage
-        sorts slot_limit(nb) blocks at a time (8 at level 9), each group
-        once per round of its slowest block; K3 and D2 once a batch."""
-        hi = min(hi, n_blocks)  # padding rows (one byte) never add rounds
-        step = bwt.slot_limit(max(b.data.size for b in blocks[lo:hi]).bit_length())
-        sorts = sum(max(block_rounds[i : min(i + step, hi)]) for i in range(lo, hi, step))
-        return {"bwt_sort": sorts, "bwt_rerank": sorts, "mtf_ranks": 1, "huffman_plan": 1}
-
-    # (a) one rank, no process group.
-    mesh = block_mesh()
-    if (mesh.group, mesh.size, mesh.device) != (None, 1, torch.device("cuda", 0)):
-        raise AssertionError(f"block_mesh() without a group is {mesh}, not one rank on cuda:0")
-    torch.cuda.reset_peak_memory_stats()
-    zero(*all_counts)
-    run, one_s = timed(lambda: mesh_run(corpus, mesh))
-    peak = torch.cuda.max_memory_allocated()
-    launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
-    sec = ", ".join(f"{k} {v:.3f} s" for k, v in run["seconds"].items())
-    sec += " (" + ", ".join(f"{k} {v:.4f}" for k, v in run["stitch_steps"].items()) + ")"
-    print(f"6a one rank, {run['rows'][1]} rows in one batch: launches {launches}")
-    print(f"  mesh compress (1 rank) {mb / one_s:.3f} MB/s ({one_s:.3f} s: {sec}); compress (phase 3) "
-          f"{mb / phase3['compress']:.3f} MB/s ({phase3['compress']:.3f} s)")
-    print(f"  peak device memory {peak} B ({peak / 2**30:.3f} GiB); compress (phase 3) "
-          f"{phase3['compress_peak']} B ({phase3['compress_peak'] / 2**30:.3f} GiB)")
-    if run["stream"] != out:
-        raise AssertionError("the one-rank mesh's stream differs from phase 3's compress stream")
-    print("  stream byte-identical to phase 3's: True")
-    want = batch_launches(0, run["rows"][1])
-    if launches != want:
-        raise AssertionError(f"the one-rank mesh launched {launches}, not {want} (one batch of {n_blocks} blocks)")
-    del run
-
-    # (b) two ranks on the one card, a gloo group of two processes.
-    with open(os.path.join(tmp, "corpus.dat"), "wb") as f:
-        f.write(corpus)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     torch.cuda.empty_cache()
-    logs = [(open(os.path.join(tmp, f"rank{r}.out"), "wb"), open(os.path.join(tmp, f"rank{r}.err"), "wb"))
+    logs = [(open(os.path.join(tmp, f"rank{r}.{mode}.out"), "wb"), open(os.path.join(tmp, f"rank{r}.{mode}.err"), "wb"))
             for r in range(MESH_RANKS)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-                               "--mesh-port", str(port), "--mesh-dir", tmp], stdout=o, stderr=e)
+                               "--mesh-port", str(port), "--mesh-dir", tmp, "--mesh-mode", mode],
+                              stdout=o, stderr=e)
              for r, (o, e) in enumerate(logs)]
     try:
         for p in procs:
@@ -494,24 +523,93 @@ def block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase3,
             e.close()
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
     for r in failed:
-        with open(os.path.join(tmp, f"rank{r}.err"), "rb") as f:
+        with open(os.path.join(tmp, f"rank{r}.{mode}.err"), "rb") as f:
             print(f"rank {r} exited {procs[r].returncode}; its stderr ends:\n"
                   f"{f.read()[-4000:].decode(errors='replace')}", file=sys.stderr)
     if failed:
-        raise AssertionError(f"phase 6b: ranks {failed} failed or did not finish within {MESH_TIMEOUT_S} s")
+        raise AssertionError(f"{mode} ranks {failed} failed or did not finish within {MESH_TIMEOUT_S} s")
     reports = []
     for r in range(MESH_RANKS):
-        with open(os.path.join(tmp, f"report.{r}.json")) as f:
+        with open(os.path.join(tmp, f"report.{mode}.{r}.json")) as f:
             reports.append(json.load(f))
-        with open(os.path.join(tmp, f"stream.{r}"), "rb") as f:
+        with open(os.path.join(tmp, f"stream.{mode}.{r}"), "rb") as f:
             if f.read() != out:
-                raise AssertionError(f"rank {r}'s stitched stream differs from phase 3's compress stream")
+                raise AssertionError(f"rank {r}'s stream ({mode}) differs from phase 3's compress stream")
+    return reports, wall
+
+
+def batch_launches(blocks, block_rounds, lo: int, hi: int) -> dict:
+    """The kernels' launches for an encode of rows lo..hi of the stream's
+    blocks: bwt_stage sorts slot_limit(nb) blocks at a time (8 at level 9),
+    each group once per round of its slowest block; K3 and D2 once a batch.
+    Padding rows (one byte) never add rounds."""
+    from bz2tpu_torch.ops import bwt
+
+    hi = min(hi, len(blocks))
+    step = bwt.slot_limit(max(b.data.size for b in blocks[lo:hi]).bit_length())
+    sorts = sum(max(block_rounds[i : min(i + step, hi)]) for i in range(lo, hi, step))
+    return {"bwt_sort": sorts, "bwt_rerank": sorts, "mtf_ranks": 1, "huffman_plan": 1}
+
+
+def batches_launches(blocks, block_rounds, sizes: list[int], ranks: int = 1, rank: int = 0) -> dict:
+    """batch_launches summed over batches of ``sizes`` blocks, each batch's
+    rows split over ``ranks`` as the block mesh splits them (no rank may
+    hold padding only)."""
+    total = {"bwt_sort": 0, "bwt_rerank": 0, "mtf_ranks": 0, "huffman_plan": 0}
+    base = 0
+    for n in sizes:
+        per = -(-n // ranks)
+        lo = base + rank * per
+        if lo >= base + n:
+            raise AssertionError(f"rank {rank} holds only padding rows of the batch at block {base}")
+        for k, v in batch_launches(blocks, block_rounds, lo, lo + per).items():
+            total[k] += v
+        base += n
+    return total
+
+
+def block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase3, card) -> None:
+    """Phase 6 (a, b): the block mesh, one rank in this process, then two
+    ranks in their own processes on the one card."""
+    from bz2tpu_torch.parallel import block_mesh
+
+    mb = len(corpus) / 1e6
+    n_blocks = len(blocks)
+
+    # (a) one rank, no process group.
+    mesh = block_mesh()
+    if (mesh.group, mesh.size, mesh.device) != (None, 1, torch.device("cuda", 0)):
+        raise AssertionError(f"block_mesh() without a group is {mesh}, not one rank on cuda:0")
+    torch.cuda.reset_peak_memory_stats()
+    zero(*all_counts)
+    run, one_s = timed(lambda: mesh_run(corpus, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    launches = encode_launches()
+    sec = ", ".join(f"{k} {v:.3f} s" for k, v in run["seconds"].items())
+    sec += " (" + ", ".join(f"{k} {v:.4f}" for k, v in run["stitch_steps"].items()) + ")"
+    print(f"6a one rank, {run['rows'][1]} rows in one batch: launches {launches}")
+    print(f"  mesh compress (1 rank) {mb / one_s:.3f} MB/s ({one_s:.3f} s: {sec}); compress (phase 3) "
+          f"{mb / phase3['compress']:.3f} MB/s ({phase3['compress']:.3f} s)")
+    print(f"  peak device memory {peak} B ({peak / 2**30:.3f} GiB); compress (phase 3) "
+          f"{phase3['compress_peak']} B ({phase3['compress_peak'] / 2**30:.3f} GiB)")
+    if run["stream"] != out:
+        raise AssertionError("the one-rank mesh's stream differs from phase 3's compress stream")
+    print("  stream byte-identical to phase 3's: True")
+    want = batch_launches(blocks, block_rounds, 0, run["rows"][1])
+    if launches != want:
+        raise AssertionError(f"the one-rank mesh launched {launches}, not {want} (one batch of {n_blocks} blocks)")
+    del run
+
+    # (b) two ranks on the one card, a gloo group of two processes.
+    with open(os.path.join(tmp, "corpus.dat"), "wb") as f:
+        f.write(corpus)
+    reports, wall = start_ranks(tmp, "stitch", out)
     print(f"6b {MESH_RANKS} ranks on one card (gloo): both ranks' streams byte-identical to phase 3's: True")
     for rep in reports:
         lo, hi = rep["rows"]
         if rep["live"] == 0:
             raise AssertionError(f"rank {rep['rank']} holds only padding rows {lo}-{hi - 1}")
-        want = batch_launches(lo, hi)
+        want = batch_launches(blocks, block_rounds, lo, hi)
         if rep["launches"] != want:
             raise AssertionError(f"rank {rep['rank']} (rows {lo}-{hi}) launched {rep['launches']}, not {want}")
         sec = ", ".join(f"{k} {v:.3f} s" for k, v in rep["seconds"].items())
@@ -528,6 +626,163 @@ def block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase3,
           f"{', '.join(format(rep['seconds']['stitch'], '.4f') for rep in reports)} s by rank")
     print(f"  wall {wall:.3f} s from the processes' start to both exits ({mb / wall:.3f} MB/s); "
           f"no scaling figure: the {MESH_RANKS} ranks share one card")
+    print(f"  card: {card}")
+
+
+def per_block_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase3, card) -> None:
+    """Phase 6 (c, d): the per-block path, in this process through compress
+    and compress_file, then through compress on two ranks that share the
+    card, where it takes the block mesh. Phase 6b wrote the corpus to tmp."""
+    import bz2tpu_torch
+    from bz2tpu_torch.runtime import compressor, stream
+
+    mb = len(corpus) / 1e6
+    path = os.path.join(tmp, "corpus.dat")
+    # (c) one process. The batch sizes are recorded on the way to the card.
+    sizes: list[int] = []
+    real_batch_tensors = compressor._batch_tensors
+    compressor._batch_tensors = lambda chunk, device, n_rows=None: (
+        sizes.append(len(chunk)) or real_batch_tensors(chunk, device, n_rows))
+    compressor._DEVICE_STITCH = False
+    runs = {}
+    try:
+        for name, run in (("compress", lambda: bz2tpu_torch.compress(corpus, level=LEVEL)),
+                          ("compress_file", lambda: stream.compress_file(path, path + ".bz2", level=LEVEL))):
+            sizes.clear()
+            zero(*all_counts)
+            got, seconds = timed(run)
+            if name == "compress_file":
+                with open(path + ".bz2", "rb") as f:
+                    got = f.read()
+            launches = encode_launches()
+            if got != out:
+                raise AssertionError(f"the per-block path's {name} differs from phase 3's compress stream")
+            want = batches_launches(blocks, block_rounds, sizes)
+            if sum(sizes) != len(blocks) or launches != want:
+                raise AssertionError(f"the per-block {name} launched {launches} on batches {sizes}, not {want}")
+            runs[name] = seconds
+            print(f"6c per-block {name}: byte-identical to phase 3's stream: True; batches {sizes}, "
+                  f"launches {launches}")
+    finally:
+        compressor._batch_tensors = real_batch_tensors
+        compressor._DEVICE_STITCH = True
+    print(f"  per-block compress {mb / runs['compress']:.3f} MB/s ({runs['compress']:.3f} s), "
+          f"compress_file {mb / runs['compress_file']:.3f} MB/s ({runs['compress_file']:.3f} s); "
+          f"compress (phase 3) {mb / phase3['compress']:.3f} MB/s ({phase3['compress']:.3f} s): "
+          f"{phase3['compress'] / runs['compress']:.3f}x and {phase3['compress'] / runs['compress_file']:.3f}x")
+
+    # (d) two ranks, each calling compress with the per-block path on.
+    reports, wall = start_ranks(tmp, "compress", out)
+    print(f"6d {MESH_RANKS} ranks on one card (gloo), each calling bz2tpu_torch.compress on the per-block "
+          f"path: both streams byte-identical to phase 3's: True")
+    sizes = [min(phase3["batch"], len(blocks) - b) for b in range(0, len(blocks), phase3["batch"])]
+    for rep in reports:
+        want = batches_launches(blocks, block_rounds, sizes, rep["size"], rep["rank"])
+        if rep["launches"] != want or rep["sharded_encodes"] != len(sizes):
+            raise AssertionError(f"rank {rep['rank']} launched {rep['launches']} in {rep['sharded_encodes']} "
+                                 f"sharded encodes, not {want} in {len(sizes)}")
+        steps = rep["steps"]
+        host = rep["clocked_s"] - sum(steps.values())
+        print(f"  rank {rep['rank']} on {rep['device']}: launches {rep['launches']} in {rep['sharded_encodes']} "
+              f"sharded encodes; compress {mb / rep['compress_s']:.3f} MB/s ({rep['compress_s']:.3f} s); "
+              f"clocked {rep['clocked_s']:.3f} s: all-gather {steps['gather']:.4f} s with the wait for the "
+              f"other rank ({rep['received_bytes']} B received), copies to the host {steps['fetch']:.4f} s, host split "
+              f"+ stitch {host:.3f} s, stages "
+              + ", ".join(f"{k} {v:.3f}" for k, v in steps.items() if k not in ("gather", "fetch"))
+              + f"; group and library ready {rep['ready_s']:.3f} s; peak {rep['peak_bytes']} B")
+    print(f"  wall {wall:.3f} s from the processes' start to both exits (each three 16 MB compresses, the "
+          f"first a warm-up); no scaling figure: the {MESH_RANKS} ranks share one card")
+    print(f"  card: {card}")
+
+
+def cold_start(argv: list[str]) -> int:
+    """Phase 7's child: import the port with the build cache the parent set
+    (empty), then (a, c) load the kernel library or (b) export an artifact,
+    then compress the corpus's first 2 MB from DIR; write the stream and a
+    JSON report there.
+
+        python3 chip_smoke.py --cold-start MODE --cold-dir DIR
+    """
+    entered = time.time()  # after the interpreter's start and torch's import
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
+        return 1
+    args = dict(zip(argv[::2], argv[1::2]))
+    mode, tmp = args["--cold-start"], args["--cold-dir"]
+    t0 = time.perf_counter()
+    import bz2tpu_torch
+    from bz2tpu_torch import _build, native
+    from bz2tpu_torch.utils import aot
+
+    report = {"entered_at": entered, "import_s": time.perf_counter() - t0, "cc_at_import": native.compiler_runs}
+    t0 = time.perf_counter()
+    if mode == "export":
+        report["libraries"] = aot.export_artifact(os.path.join(tmp, "artifact"), levels=(LEVEL,))
+    else:
+        _build.lib()
+    report["library_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, "head.dat"), "rb") as f:
+        head = f.read()
+    stream, report["compress_s"] = timed(lambda: bz2tpu_torch.compress(head, level=LEVEL))
+    report.update(stream_at=time.time(), nvcc_runs=_build.compiler_runs, cc_runs=native.compiler_runs,
+                  nvcc_s=_build.build_seconds, aot=aot.stats, cache=str(_build.BUILD_DIR))
+    with open(os.path.join(tmp, f"cold.{mode}.bz2"), "wb") as f:
+        f.write(stream)
+    with open(os.path.join(tmp, f"cold.{mode}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def cold_start_phase(tmp: str, head: bytes, out_head: bytes, card: str) -> None:
+    """Phase 7: a build from nothing, an export, and the exported artifact,
+    each in a fresh process with an empty build cache."""
+    import subprocess
+
+    with open(os.path.join(tmp, "head.dat"), "wb") as f:
+        f.write(head)
+    reports = {}
+    for mode in ("build", "export", "artifact"):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("BZ2TPU_TORCH_")}
+        env["BZ2TPU_TORCH_CACHE_DIR"] = os.path.join(tmp, f"cache.{mode}")
+        if mode == "artifact":
+            env["BZ2TPU_TORCH_AOT_DIR"] = os.path.join(tmp, "artifact")
+        t0 = time.time()
+        try:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cold-start", mode,
+                                   "--cold-dir", tmp], env=env, capture_output=True, text=True,
+                                  timeout=COLD_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"phase 7 ({mode}) did not finish within {COLD_TIMEOUT_S} s") from e
+        if proc.returncode != 0:
+            print(f"phase 7 ({mode}) exited {proc.returncode}; its stderr ends:\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            raise AssertionError(f"phase 7 ({mode}) failed")
+        with open(os.path.join(tmp, f"cold.{mode}.json")) as f:
+            rep = json.load(f)
+        with open(os.path.join(tmp, f"cold.{mode}.bz2"), "rb") as f:
+            stream = f.read()
+        if stream != out_head or stdlib_bz2.decompress(stream) != head:
+            raise AssertionError(f"phase 7 ({mode}): the stream differs from phase 3's or does not decode")
+        rep["first_stream_s"] = rep["stream_at"] - t0
+        reports[mode] = rep
+        print(f"7{'abc'[len(reports) - 1]} {mode}: first {len(head)} B stream {rep['first_stream_s']:.3f} s after "
+              f"the process's start (interpreter and torch {rep['entered_at'] - t0:.3f} s, import of the port "
+              f"{rep['import_s']:.3f} s, "
+              f"{'export' if mode == 'export' else 'kernel library'} {rep['library_s']:.3f} s, first compress "
+              f"{rep['compress_s']:.3f} s); compiler runs nvcc {rep['nvcc_runs']} "
+              f"({rep['nvcc_s'] if rep['nvcc_s'] is not None else 'none'} s), cc {rep['cc_runs']} "
+              f"({rep['cc_at_import']} at import); artifact install {rep['aot']}; stream equal to phase 3's "
+              f"and decoded by stdlib bz2: True")
+    build, art = reports["build"], reports["artifact"]
+    if build["nvcc_runs"] == 0 or build["cc_runs"] == 0:
+        raise AssertionError(f"phase 7a ran nvcc {build['nvcc_runs']} and cc {build['cc_runs']} times in an empty cache")
+    if reports["export"]["libraries"] != 2:
+        raise AssertionError(f"the exported artifact holds {reports['export']['libraries']} libraries, not 2")
+    if (art["nvcc_runs"], art["cc_runs"]) != (0, 0) or art["aot"]["installed_files"] != 2:
+        raise AssertionError(f"phase 7c ran nvcc {art['nvcc_runs']} and cc {art['cc_runs']} times "
+                             f"with the artifact installed ({art['aot']})")
+    print(f"  first stream: {build['first_stream_s']:.3f} s building from nothing, {art['first_stream_s']:.3f} s "
+          f"with the artifact ({build['first_stream_s'] / art['first_stream_s']:.2f}x)")
     print(f"  card: {card}")
 
 
@@ -830,11 +1085,16 @@ def main() -> int:
         files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_counts,
                           {"compress": port_s, "decompress": host_s, "compress_peak": compress_peak}, card)
 
-    # -- 6. the block mesh ------------------------------------------------------
+    # -- 6. the block mesh, and the per-block path that drives it --------------
     with tempfile.TemporaryDirectory() as tmp:
-        block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts,
-                         {"compress": port_s, "compress_peak": compress_peak, "k1": launches["bwt_sort"],
-                          "batch": DEFAULT_BATCH}, card)
+        phase6 = {"compress": port_s, "compress_peak": compress_peak, "k1": launches["bwt_sort"],
+                  "batch": DEFAULT_BATCH}
+        block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase6, card)
+        per_block_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase6, card)
+
+    # -- 7. cold start: fresh processes, empty build caches ----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cold_start_phase(tmp, head, out_head, card)
 
     table = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -854,4 +1114,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(mesh_rank(sys.argv[1:]) if "--mesh-rank" in sys.argv else main())
+    if "--mesh-rank" in sys.argv:
+        sys.exit(mesh_rank(sys.argv[1:]))
+    sys.exit(cold_start(sys.argv[1:]) if "--cold-start" in sys.argv else main())

@@ -2,8 +2,10 @@
 torch version (exact), the stages and the whole stream on the card against
 the CPU path, for compress (levels 1 and 5), compress_device_intake,
 decompress_device, the stream and file layer (compress_file, a
-checkpoint resumed, BZ2File) and the per-block encode of the block mesh
-(encode_blocks, pack_blocks then concat_block_words).
+checkpoint resumed, BZ2File), the per-block encode of the block mesh
+(encode_blocks, pack_blocks then concat_block_words), the per-block
+compress path (BZ2TPU_DEVICE_STITCH=0) and an exported build with kernels
+that spares a fresh process nvcc.
 
 Every test needs a CUDA card and skips without one. The file imports no
 JAX and nothing from conftest, so on a machine with a card and without JAX
@@ -488,3 +490,58 @@ def test_encode_blocks_on_card_matches_cpu(cuda):
     assert set(got) == set(want)
     for key in want:
         _equal(got[key].cpu(), want[key])
+
+
+def test_per_block_path_on_card_matches_concat_at_level5(cuda, monkeypatch):
+    # BZ2TPU_DEVICE_STITCH=0: each block back on its own and stitched on the
+    # host, byte-identical to the batch concatenated on the card.
+    from bz2tpu_torch.format.constants import block_capacity
+    from bz2tpu_torch.runtime import compressor
+
+    rng = np.random.default_rng(757)
+    data = rng.integers(0, 32, 2 * block_capacity(5) - 70_000, dtype=np.uint8).tobytes()
+    data += _corpus("text", 90_111, 758).tobytes()
+    want = bz2tpu_torch.compress(data, level=5, parallel=2)
+    monkeypatch.setattr(compressor, "_DEVICE_STITCH", False)
+    rows = list(compressor._encode_batches(split_blocks(data, 5), 2, cuda))
+    assert len(rows) == 3 and all(r["words"].size == (r["total_bits"] + 31) // 32 for r in rows)
+    assert bz2tpu_torch.compress(data, level=5, parallel=2) == want
+    assert stdlib_bz2.decompress(want) == data
+
+
+def test_exported_artifact_with_kernels_spares_nvcc_in_a_fresh_process(cuda, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BZ2TPU_TORCH_")}
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    art = tmp_path / "artifact"
+
+    def run(code: str, **extra) -> str:
+        proc = subprocess.run([sys.executable, "-c", code], env={**env, **extra}, cwd=tmp_path,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        return proc.stdout
+
+    out = run(f"from bz2tpu_torch.utils.aot import export_artifact\n"
+              f"print('N', export_artifact({str(art)!r}, levels=(1,), batch=2))",
+              BZ2TPU_TORCH_CACHE_DIR=str(tmp_path / "export_cache"))
+    assert "N 2" in out
+    manifest = json.loads((art / "bz2tpu_torch_aot_manifest.json").read_text())
+    assert manifest["kernels"]["file"].startswith("libbz2tpu_torch_") and manifest["kernels"]["cuda_runtime"]
+    data = _corpus("text", 150_000, 759).tobytes()
+    (tmp_path / "data.bin").write_bytes(data)
+    out = run("import bz2, json\n"
+              "import bz2tpu_torch\n"
+              "from bz2tpu_torch import _build, native\n"
+              "data = open('data.bin', 'rb').read()\n"
+              "out = bz2tpu_torch.compress(data, level=1, parallel=2)\n"
+              "assert bz2.decompress(out) == data\n"
+              "assert out == bz2tpu_torch.compress(data, level=1, parallel=2, device='cpu')\n"
+              "print('RUNS', json.dumps([_build.compiler_runs, native.compiler_runs]))",
+              BZ2TPU_TORCH_CACHE_DIR=str(tmp_path / "fresh_cache"), BZ2TPU_TORCH_AOT_DIR=str(art))
+    assert "RUNS [0, 0]" in out

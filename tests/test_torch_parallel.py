@@ -36,6 +36,7 @@ from bz2tpu.ops.pipeline import encode_blocks as jax_encode_blocks  # noqa: E402
 from bz2tpu.ops.pipeline import encode_blocks_staged as jax_encode_staged  # noqa: E402
 from bz2tpu.parallel import mesh as jax_mesh  # noqa: E402
 from bz2tpu.parallel.stitch import stitch_stream_sharded as jax_stitch  # noqa: E402
+from bz2tpu.runtime import compressor as jax_compressor  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
@@ -179,8 +180,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_ranks(tmp_path: Path, size: int, *args: str, timeout: float = 180) -> None:
-    """Start ``size`` workers on a fresh port; all must exit 0 in time."""
+def _start_ranks(tmp_path: Path, size: int, *args: str, timeout: float = 180) -> list[tuple[int, str]]:
+    """Start ``size`` workers on a fresh port; each one's exit code and
+    stderr, once all have exited (a worker still running at ``timeout`` is
+    killed, and the test fails)."""
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "LOCAL_RANK")}
     env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     port = str(_free_port())
@@ -196,8 +199,13 @@ def _run_ranks(tmp_path: Path, size: int, *args: str, timeout: float = 180) -> N
         for p in procs:
             p.kill()
             p.wait()
-    for r, (p, err) in enumerate(zip(procs, errs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}: {err.decode()[-3000:]}"
+    return [(p.returncode, err.decode()) for p, err in zip(procs, errs)]
+
+
+def _run_ranks(tmp_path: Path, size: int, *args: str, timeout: float = 180) -> None:
+    """Start ``size`` workers on a fresh port; all must exit 0 in time."""
+    for r, (rc, err) in enumerate(_start_ranks(tmp_path, size, *args, timeout=timeout)):
+        assert rc == 0, f"rank {r} exited {rc}: {err[-3000:]}"
 
 
 def _ranks_agree(tmp_path: Path, case, size: int) -> bytes:
@@ -318,7 +326,94 @@ def test_mesh_rows_and_one_rank_rules():
         second.rows(3)
 
 
-# -- (e) initialize: each case in its own process ---------------------------------
+# -- (e) the mesh inside compress: the public entry point, per-block path ----------
+
+
+@lru_cache(maxsize=None)
+def _mesh_data() -> bytes:
+    """9 level-1 blocks of text: a batch of 8, then one block and padding."""
+    data = _text(41, 850_000)
+    assert len(split_blocks(data, LEVEL)) == 9
+    return data
+
+
+@lru_cache(maxsize=None)
+def _jax_per_block_stream(data: bytes) -> bytes:
+    """bz2tpu.compress with its _DEVICE_STITCH off at parallel=8: its batch
+    of 8 divides the conftest's 8 CPU devices, so it takes its own mesh."""
+    assert jax.device_count() == 8
+    saved = jax_compressor._DEVICE_STITCH
+    jax_compressor._DEVICE_STITCH = False
+    try:
+        return jax_compressor.compress(data, level=LEVEL, parallel=8)
+    finally:
+        jax_compressor._DEVICE_STITCH = saved
+
+
+# case -> (ranks, parallel, API, whether the mesh runs). At parallel=8 the
+# ranks divide the batch; at S = 4 and parallel=2 they do not, and the
+# call takes the single-device path on every rank, as bz2tpu's does.
+COMPRESS_CASES = {"S2": (2, 8, "compress", True), "S4": (4, 8, "compress", True),
+                  "S2_stream": (2, 8, "stream", True), "S4_parallel2": (4, 2, "compress", False)}
+
+
+@pytest.mark.parametrize("case", list(COMPRESS_CASES))
+def test_compress_reaches_the_mesh_through_the_entry_point(tmp_path, case):
+    size, parallel, api, meshed = COMPRESS_CASES[case]
+    data = _mesh_data()
+    path = tmp_path / "input.bin"
+    path.write_bytes(data)
+    _run_ranks(tmp_path, size, "compress", str(path), str(LEVEL), str(parallel), api)
+    stream = _ranks_agree(tmp_path, "compress", size)
+    calls = [int((tmp_path / f"mesh_calls.{r}").read_text()) for r in range(size)]
+    # compress: one sharded encode a batch (8 blocks, then 1); the stream's
+    # rounds hold back their last block: batches of 7, then 2.
+    assert calls == [2] * size if meshed else calls == [0] * size
+    assert stream == _port_compress(data)
+    assert stream == _jax_per_block_stream(data)
+    assert stdlib_bz2.decompress(stream) == data
+
+
+def test_a_failing_rank_fails_the_others_instead_of_hanging(tmp_path):
+    path = tmp_path / "input.bin"
+    path.write_bytes(_text(7, 310_000))
+    t0 = time.monotonic()
+    (rc0, err0), (rc1, err1) = _start_ranks(tmp_path, 2, "compress", str(path), str(LEVEL), "2", "fail",
+                                            timeout=150)
+    assert rc1 == 1 and "rank 1 fails before compress" in err1, err1[-3000:]
+    # Rank 0 raised out of its collective (a kill at the timeout is -9),
+    # within the group's 60 s timeout and the processes' start.
+    assert rc0 == 1, (rc0, err0[-3000:])
+    assert time.monotonic() - t0 < 60 + 60
+    assert not (tmp_path / "stream_compress.0").exists()
+
+
+def test_a_group_of_one_takes_the_single_device_path(tmp_path):
+    data = _text(7, 310_000)
+    path, out = tmp_path / "input.bin", tmp_path / "out.bz2"
+    path.write_bytes(data)
+    _in_subprocess(f"""
+        from pathlib import Path
+        import torch.distributed as dist
+        from bz2tpu_torch.parallel import mesh
+        from bz2tpu_torch.parallel.distributed import initialize
+        from bz2tpu_torch.runtime import compressor
+        initialize(backend="gloo", timeout_s=30)
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        calls = []
+        real = mesh.encode_blocks_sharded
+        mesh.encode_blocks_sharded = lambda *a, **k: calls.append(1) or real(*a, **k)
+        compressor._DEVICE_STITCH = False
+        stream = compressor.compress(Path({str(path)!r}).read_bytes(), level={LEVEL}, parallel=2, device="cpu")
+        assert calls == [], calls
+        Path({str(out)!r}).write_bytes(stream)
+        dist.destroy_process_group()
+        print("CASE-OK")
+    """, {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1", "RANK": "0"})
+    assert out.read_bytes() == _port_compress(data)
+
+
+# -- (f) initialize: each case in its own process ---------------------------------
 
 
 def _in_subprocess(code: str, env_extra: dict | None = None, timeout: float = 120):

@@ -1,8 +1,9 @@
 """bz2tpu_torch stands alone: no module of the port, and neither
 chip_smoke.py nor the port's tools/profile_compress.py,
 tools/time_dec_chain.py and tests/torch_parallel_worker.py, imports bz2tpu or the JAX
-package's bench.py; importing them loads neither bz2tpu nor JAX, a fresh
-copy builds its host C library under its own build/ directory, and each
+package's bench.py; importing them loads neither bz2tpu nor JAX (nor
+does installing a shipped build at import), a fresh copy builds its host C
+library under its own build/ directory, and each
 copy of a bz2tpu host layer (the benchmark corpus included) agrees with
 its original.
 """
@@ -84,8 +85,9 @@ print("NATIVE", bz2tpu_torch.native.HAVE_NATIVE, bz2tpu_torch.native.library_pat
 """
 
 
-def _run(code: str, cwd: Path) -> str:
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+def _run(code: str, cwd: Path, env_extra: dict | None = None) -> str:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("BZ2TPU_TORCH_")}
+    env.update(env_extra or {})
     proc = subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     return proc.stdout
@@ -95,6 +97,22 @@ def test_importing_the_port_loads_neither_jax_nor_bz2tpu():
     out = _run(_IMPORT_ALL.format(root=str(ROOT)), ROOT)
     assert "LOADED []" in out
     assert "NATIVE True" in out
+
+
+def test_importing_the_port_with_an_artifact_loads_neither_jax_nor_bz2tpu(tmp_path):
+    # The artifact is installed while the package is imported (before
+    # native/ would build): that path must not reach the JAX side either.
+    art, cache = tmp_path / "artifact", tmp_path / "cache"
+    _run(f"import sys; sys.path.insert(0, {str(ROOT)!r})\n"
+         "from bz2tpu_torch.utils.aot import export_artifact\n"
+         f"export_artifact({str(art)!r}, levels=(1,), batch=2, device='cpu')", ROOT,
+         {"BZ2TPU_TORCH_CACHE_DIR": str(tmp_path / "export_cache")})
+    out = _run(_IMPORT_ALL.format(root=str(ROOT)) + "print('STATS', bz2tpu_torch.utils.aot.stats)\n"
+               "print('CC', bz2tpu_torch.native.compiler_runs)", ROOT,
+               {"BZ2TPU_TORCH_CACHE_DIR": str(cache), "BZ2TPU_TORCH_AOT_DIR": str(art)})
+    assert "LOADED []" in out
+    assert f"NATIVE True {cache}" in out
+    assert "STATS {'installed_files': 1, 'skipped_files': 0}" in out and "CC 0" in out
 
 
 def test_fresh_copy_builds_its_host_library_under_its_own_build_dir(tmp_path):

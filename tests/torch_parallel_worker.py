@@ -4,6 +4,7 @@ torch and bz2tpu_torch only.
 
     python tests/torch_parallel_worker.py PORT S RANK OUT_DIR data FILE LEVEL
     python tests/torch_parallel_worker.py PORT S RANK OUT_DIR words NPZ
+    python tests/torch_parallel_worker.py PORT S RANK OUT_DIR compress FILE LEVEL PARALLEL API
 
 ``data``: split FILE at LEVEL, encode the batch (padded to a multiple of
 S) with encode_blocks_sharded, stitch this rank's rows with
@@ -13,9 +14,16 @@ first S // 2 ranks; every stream must agree. ``words``: stitch each case
 of per-block words, bits and CRCs in NPZ (keys words_i, bits_i, crcs_i,
 live_i, level_i) with stitch_stream_sharded. Each rank writes its streams
 to OUT_DIR/stream_<case>.<rank>; rank 0 writes the gathered shards to
-OUT_DIR/gathered.npz.
+OUT_DIR/gathered.npz. ``compress``: the public entry point with
+compressor._DEVICE_STITCH off, so that the block mesh is reached through
+it: API ``compress`` calls compress(FILE's bytes, LEVEL, PARALLEL), API
+``stream`` compress_stream of FILE, API ``fail`` raises on rank 1 before
+compress (the other ranks must fail, not hang); each rank writes its
+stream to OUT_DIR/stream_compress.<rank> and the number of
+encode_blocks_sharded calls it made to OUT_DIR/mesh_calls.<rank>.
 """
 
+import io
 import sys
 from pathlib import Path
 
@@ -73,6 +81,28 @@ def stitch_cases(mesh, path: str, out_dir: Path) -> None:
         (out_dir / f"stream_{i}.{mesh.rank}").write_bytes(stream)
 
 
+def compress_through_the_entry_point(rank: int, path: str, level: int, parallel: int, api: str,
+                                     out_dir: Path) -> None:
+    from bz2tpu_torch.parallel import mesh as mesh_module
+    from bz2tpu_torch.runtime import compressor, stream
+
+    calls = []
+    real = mesh_module.encode_blocks_sharded
+    mesh_module.encode_blocks_sharded = lambda *a, **k: calls.append(1) or real(*a, **k)
+    compressor._DEVICE_STITCH = False
+    data = Path(path).read_bytes()
+    if api == "fail" and rank == 1:
+        raise RuntimeError("rank 1 fails before compress")
+    if api == "stream":
+        sink = io.BytesIO()
+        stream.compress_stream(io.BytesIO(data), sink, level=level, parallel=parallel, device="cpu")
+        out = sink.getvalue()
+    else:
+        out = compressor.compress(data, level=level, parallel=parallel, device="cpu")
+    (out_dir / f"stream_compress.{rank}").write_bytes(out)
+    (out_dir / f"mesh_calls.{rank}").write_text(str(len(calls)))
+
+
 def main(argv: list[str]) -> int:
     port, size, rank, out_dir, mode, path = argv[:6]
     torch.set_num_threads(1)
@@ -82,6 +112,8 @@ def main(argv: list[str]) -> int:
     assert (mesh.rank, mesh.size) == (int(rank), int(size)), mesh
     if mode == "data":
         encode_and_stitch(mesh, path, int(argv[6]), Path(out_dir))
+    elif mode == "compress":
+        compress_through_the_entry_point(mesh.rank, path, int(argv[6]), int(argv[7]), argv[8], Path(out_dir))
     else:
         stitch_cases(mesh, path, Path(out_dir))
     dist.destroy_process_group()
