@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> (argtypes); every entry point returns a cudaError_t as int, the
 # *_scratch and *_work helpers return a buffer size in 32-bit words, the
 # *_smem helper one in bytes.
@@ -49,6 +50,8 @@ SIGNATURES = {
     "bz2t_dec_chain_smem": (_I,),
     "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "bz2t_huffman_plan": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "bz2t_dec_symbols": (_P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "bz2t_mtf_dec": (_P, _L, _P, _P, _P),
 }
 
 _lock = threading.Lock()

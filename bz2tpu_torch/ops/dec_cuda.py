@@ -1,16 +1,21 @@
-"""dec_chain: the serial chain of Huffman group starts (CUDA,
-csrc/dec_chain.cu) beside its plain torch loop.
+"""The Huffman decode's two device loops as CUDA kernels, each beside its
+plain torch loop: dec_chain (csrc/dec_chain.cu) and dec_symbols
+(csrc/dec_symbols.cu). Both are port-only kernels: each replaces a
+lax.fori_loop of the JAX form, not a pl.pallas_call.
 
-Step 3 of the jump-map decode (ops/huffman_dec.py): group g of block b
-starts where 50 symbols of table tbl[b, g] from the start of group g - 1
-end, cur <- jump50[b, tbl[b, g], cur]. The JAX form runs it as a device
-lax.fori_loop (bz2tpu/ops/huffman_dec.py:231-239); in eager torch a loop
-of up to 18,002 steps of dependent gathers per bucket is bound by the
+dec_chain, step 3 of the jump-map decode (ops/huffman_dec.py): group g of
+block b starts where 50 symbols of table tbl[b, g] from the start of group
+g - 1 end, cur <- jump50[b, tbl[b, g], cur]. The JAX form runs it as a
+device lax.fori_loop (bz2tpu/ops/huffman_dec.py:231-239); in eager torch a
+loop of up to 18,002 steps of dependent gathers per bucket is bound by the
 host's launch pace, so the port walks it in one kernel, which reads each
 step's jump from a window of the map that it fetched into shared memory
 some groups ahead, where each table's recent group widths put the group
-(see csrc/dec_chain.cu). It is a port-only kernel: it replaces a
-fori_loop, not a pl.pallas_call.
+(see csrc/dec_chain.cu).
+
+dec_symbols, step 4: every group's 50 symbols decoded at its known start
+(the 50-step lax.fori_loop at bz2tpu/ops/huffman_dec.py:247-267, some 30
+torch launches a step in eager torch), one thread a group.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -21,9 +26,13 @@ from __future__ import annotations
 import torch
 
 from bz2tpu_torch import _build
+from bz2tpu_torch.format import constants as C
 
 # Kernel launches by wrapper (reset to 0 to count one run).
-LAUNCHES = {"dec_chain": 0}
+LAUNCHES = {"dec_chain": 0, "dec_symbols": 0}
+KMAX = C.HUFFMAN_DECODE_MAX_ACCEPTED_LENGTH  # 20: longer codes are invalid
+LUT_BITS = 20  # the code length is a function of the top 20 window bits
+_MASK23 = (1 << 23) - 1
 SMEM_LIMIT = 232_448  # bytes of shared memory a CTA can have on the H100
 
 
@@ -83,3 +92,90 @@ def group_starts(jump50: torch.Tensor, tbl: torch.Tensor, n_groups: torch.Tensor
     _build.check(err, "dec_chain")
     LAUNCHES["dec_chain"] += 1
     return (starts, misses) if with_misses else starts
+
+
+def window23(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
+    """23-bit big-endian window value (int64) at each absolute bit position."""
+    w32 = words[(bitpos >> 3).clamp(0, words.shape[0] - 1)]
+    return (w32 >> (9 - (bitpos & 7))) & _MASK23
+
+
+def decode_groups_ref(words, offs, tbl, lut, lut_idx, base, perm) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the 50-step loop over all groups of the batch at once."""
+    B, G = tbl.shape
+    T = base.shape[1]
+    group = C.HUFFMAN_GROUP_SIZE
+    alpha = C.HUFFMAN_MAX_ALPHABET
+    bt = torch.arange(B, device=words.device)[:, None] * T + tbl.long()  # (B, G) table row
+    lut_g = lut_idx.long().gather(1, tbl.long()) << LUT_BITS
+    flat_lut, flat_base, flat_perm = lut.view(-1), base.reshape(-1), perm.reshape(-1)
+    syms, lens = [], []
+    for _ in range(group):
+        v = window23(words, offs)
+        ln = flat_lut[lut_g + (v >> 3)].to(torch.int64)
+        matched = ln <= KMAX
+        ln = torch.where(matched, ln.clamp(min=1), 1)
+        pidx = (v >> (23 - ln)) - flat_base[bt * (KMAX + 1) + ln]
+        bad = ~matched | (pidx < 0) | (pidx >= alpha)
+        sym = flat_perm[bt * alpha + pidx.clamp(0, alpha - 1)]
+        syms.append(torch.where(bad, -2, sym))
+        lens.append(ln)
+        offs = offs + ln
+    flat_syms = torch.stack(syms, 2).view(B, G * group).to(torch.int32)
+    flat_lens = torch.stack(lens, 2).view(B, G * group).to(torch.int32)
+    return flat_syms, flat_lens
+
+
+def decode_groups(words, offs, tbl, lut, lut_idx, base, perm) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 50 symbols of every Huffman group of a batch, each group decoded
+    from its known start bit.
+
+    words: (NB,) int64 window words of the stream (huffman_dec.window_words,
+    as runtime/device_decode.stream_words pads it); offs: (B, G) int64
+    absolute start bit of each group; tbl: (B, G) int32 table per group, in
+    [0, T); lut: (U, 2^20) int8 code-length LUTs; lut_idx: (B, T) int32 LUT
+    row per table, in [0, U); base: (B, T, 21) and perm: (B, T, 258) int32
+    canonical tables, T at most 6. Returns (symbols, lengths), each (B,
+    G * 50) int32: -2 for a window that holds no valid code, and length 1
+    where no length is acceptable.
+    """
+    dev = words.device
+    if words.dtype != torch.int64 or words.dim() != 1 or words.numel() == 0 or not words.is_contiguous():
+        raise ValueError(f"words must be a contiguous non-empty (NB,) int64 tensor, got {words.dtype} {tuple(words.shape)}")
+    if offs.dtype != torch.int64 or offs.dim() != 2 or not offs.is_contiguous() or offs.device != dev:
+        raise ValueError(f"offs must be a contiguous (B, G) int64 tensor on {dev}")
+    B, G = offs.shape
+    if tbl.dtype != torch.int32 or tbl.shape != (B, G) or not tbl.is_contiguous() or tbl.device != dev:
+        raise ValueError(f"tbl must be a contiguous ({B}, {G}) int32 tensor on {dev}")
+    if lut.dtype != torch.int8 or lut.dim() != 2 or lut.shape[1] != 1 << LUT_BITS or lut.shape[0] == 0 \
+            or not lut.is_contiguous() or lut.device != dev:
+        raise ValueError(f"lut must be a contiguous (U, 2^{LUT_BITS}) int8 tensor on {dev}")
+    if base.dtype != torch.int32 or base.dim() != 3 or base.shape[0] != B or base.shape[2] != KMAX + 1 \
+            or not base.is_contiguous() or base.device != dev:
+        raise ValueError(f"base must be a contiguous ({B}, T, {KMAX + 1}) int32 tensor on {dev}")
+    T = base.shape[1]
+    if not 1 <= T <= C.HUFFMAN_MAX_TABLES:
+        raise ValueError(f"{T} tables a block; bzip2 has 1 to {C.HUFFMAN_MAX_TABLES}")
+    if perm.dtype != torch.int32 or perm.shape != (B, T, C.HUFFMAN_MAX_ALPHABET) or not perm.is_contiguous() \
+            or perm.device != dev:
+        raise ValueError(f"perm must be a contiguous ({B}, {T}, {C.HUFFMAN_MAX_ALPHABET}) int32 tensor on {dev}")
+    if lut_idx.dtype != torch.int32 or lut_idx.shape != (B, T) or not lut_idx.is_contiguous() or lut_idx.device != dev:
+        raise ValueError(f"lut_idx must be a contiguous ({B}, {T}) int32 tensor on {dev}")
+    if dev.type == "cpu":
+        return decode_groups_ref(words, offs, tbl, lut, lut_idx, base, perm)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if B > 65_535:
+        raise ValueError(f"{B} blocks exceed the kernel's grid")
+    lib = _build.lib()
+    n = G * C.HUFFMAN_GROUP_SIZE
+    syms = torch.empty(B, n, dtype=torch.int32, device=dev)
+    lens = torch.empty(B, n, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.bz2t_dec_symbols(
+        words.data_ptr(), words.numel(), offs.data_ptr(), tbl.data_ptr(), lut.data_ptr(), lut.shape[0],
+        lut_idx.data_ptr(), base.data_ptr(), perm.data_ptr(), B, T, G, syms.data_ptr(), lens.data_ptr(), stream,
+    )
+    _build.check(err, "dec_symbols")
+    LAUNCHES["dec_symbols"] += 1
+    return syms, lens

@@ -11,7 +11,8 @@ blocks of a bucket:
      flat int32 map;
   3. the serial chain of group starts through the selectors, the kernel
      ``dec_chain`` (ops/dec_cuda.py; a lax.fori_loop in the JAX form);
-  4. a 50-step pass re-decodes every group's symbols at its known start.
+  4. every group's 50 symbols decoded at its known start, the kernel
+     ``dec_symbols`` (ops/dec_cuda.py; a lax.fori_loop in the JAX form).
 
 Validation is exact: the bit after EOB must be the block's end bit from
 the marker scan. Only the default int32 absolute-jump composition of the
@@ -20,15 +21,13 @@ JAX form is ported (not its BZ2TPU_DEC_I16 variant).
 
 from __future__ import annotations
 
+from collections.abc import Callable
+
 import numpy as np
 import torch
 
 from bz2tpu_torch.format import constants as C
-from bz2tpu_torch.ops.dec_cuda import group_starts
-
-KMAX = C.HUFFMAN_DECODE_MAX_ACCEPTED_LENGTH  # 20: longer codes are invalid
-LUT_BITS = 20  # the code length is a function of the top 20 window bits
-_MASK23 = (1 << 23) - 1
+from bz2tpu_torch.ops.dec_cuda import KMAX, LUT_BITS, decode_groups, group_starts, window23
 
 
 def build_len_luts(thr: torch.Tensor) -> torch.Tensor:
@@ -86,12 +85,6 @@ def window_words(stream: torch.Tensor) -> torch.Tensor:
     return (ext[:-3] << 24) | (ext[1:-2] << 16) | (ext[2:-1] << 8) | ext[3:]
 
 
-def window23(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
-    """23-bit big-endian window value (int64) at each absolute bit position."""
-    w32 = words[(bitpos >> 3).clamp(0, words.shape[0] - 1)]
-    return (w32 >> (9 - (bitpos & 7))) & _MASK23
-
-
 def jump50_maps(
     words: torch.Tensor,
     start_bit: torch.Tensor,
@@ -147,6 +140,7 @@ def decode_symbol_data(
     lut_idx: torch.Tensor,
     *,
     n_bits_cap: int,
+    lap: Callable[[str], None] = lambda stage: None,
 ) -> dict[str, torch.Tensor]:
     """Decode the Huffman symbol data of a batch of B blocks.
 
@@ -159,39 +153,28 @@ def decode_symbol_data(
     2^20) int8 (build_len_luts) with lut_idx (B, T) its row per table.
 
     Returns dict with symbols (B, G*50) int32 (-1 past n_sym), n_sym (B,)
-    int32 and ok (B,) bool (EOB lands exactly at end_bit).
+    int32 and ok (B,) bool (EOB lands exactly at end_bit). ``lap`` is
+    called with "jump_maps", "dec_chain", "dec_symbols" and "validate" as
+    each step ends (a stage clock's lap, for a clocked decode).
     """
     B, G = selectors.shape
     T = base.shape[1]
     dev = words.device
     group = C.HUFFMAN_GROUP_SIZE
-    alpha = C.HUFFMAN_MAX_ALPHABET
     start_bit = start_bit.to(torch.int64)
     tbl = selectors.clamp(0, T - 1).to(torch.int32).contiguous()
 
     jump50 = jump50_maps(words, start_bit, lut, lut_idx, n_bits_cap)
+    lap("jump_maps")
     starts = group_starts(jump50, tbl, n_groups.to(torch.int32).contiguous())
     del jump50
+    lap("dec_chain")
 
-    # --- 4. every group's 50 symbols at its known start ---------------------
-    bt = torch.arange(B, device=dev)[:, None] * T + tbl.long()  # (B, G) table row
-    lut_g = lut_idx.long().gather(1, tbl.long()) << LUT_BITS
-    flat_lut, flat_base, flat_perm = lut.view(-1), base.reshape(-1), perm.reshape(-1)
+    # --- 4. every group's 50 symbols at its known start: dec_symbols ---------
     offs = start_bit[:, None] + starts.long()
-    syms, lens = [], []
-    for _ in range(group):
-        v = window23(words, offs)
-        ln = flat_lut[lut_g + (v >> 3)].to(torch.int64)
-        matched = ln <= KMAX
-        ln = torch.where(matched, ln.clamp(min=1), 1)
-        pidx = (v >> (23 - ln)) - flat_base[bt * (KMAX + 1) + ln]
-        bad = ~matched | (pidx < 0) | (pidx >= alpha)
-        sym = flat_perm[bt * alpha + pidx.clamp(0, alpha - 1)]
-        syms.append(torch.where(bad, -2, sym))
-        lens.append(ln)
-        offs = offs + ln
-    flat_syms = torch.stack(syms, 2).view(B, G * group)
-    flat_lens = torch.stack(lens, 2).view(B, G * group)
+    del starts
+    flat_syms, flat_lens = decode_groups(words, offs, tbl, lut, lut_idx, base, perm)
+    lap("dec_symbols")
 
     # --- EOB trim + exact validation ----------------------------------------
     sym_valid = (torch.arange(G, device=dev)[None, :] < n_groups[:, None]).repeat_interleave(group, 1)
@@ -203,4 +186,6 @@ def decode_symbol_data(
     no_bad = ~(keep & (flat_syms == -2)).any(1)
     fits = (end_bit - start_bit) <= n_bits_cap
     ok = is_eob.any(1) & end_ok & no_bad & fits
-    return {"symbols": torch.where(keep, flat_syms, -1), "n_sym": n_sym, "ok": ok}
+    out = {"symbols": torch.where(keep, flat_syms, -1), "n_sym": n_sym, "ok": ok}
+    lap("validate")
+    return out

@@ -5,10 +5,10 @@ Port of bz2tpu/ops/mtf_dec.py, batched over (B, M):
   * a maximal RUNA/RUNB digit segment (bijective base 2, LSB first) sums
     (digit + 1) << position_in_segment, a segmented sum over cumsums;
   * each literal "move index j to the front" is a permutation of the
-    256-entry list; chunks of 128 literals compose theirs step by step
-    (128 steps of a shift-and-select in uint8), and a Hillis-Steele
-    doubling over the chunk axis chains the chunk permutations (torch has
-    no associative_scan);
+    256-entry list; chunks of 128 literals compose theirs step by step,
+    the kernel ``mtf_dec`` (ops/mtf_dec_cuda.py; a lax.fori_loop of 128
+    steps in the JAX form), and a Hillis-Steele doubling over the chunk
+    axis chains the chunk permutations (torch has no associative_scan);
   * run bytes repeat the last literal byte; the BWT column materialises
     with one searchsorted over the per-symbol output-length cumsum.
 
@@ -18,11 +18,13 @@ wraps where the JAX one wraps.
 
 from __future__ import annotations
 
+from collections.abc import Callable
+
 import torch
 
 from bz2tpu_torch.format import constants as C
+from bz2tpu_torch.ops.mtf_dec_cuda import CHUNK, chunk_perms
 
-CHUNK = 128  # literals per permutation chunk, as bz2tpu.ops.mtf_dec._CHUNK
 _I32_MAX = 2**31 - 1
 
 
@@ -50,6 +52,7 @@ def mtf_rle2_decode(
     eob: torch.Tensor,
     *,
     out_capacity: int,
+    lap: Callable[[str], None] = lambda stage: None,
 ) -> dict[str, torch.Tensor]:
     """Expand MTF/RLE2 symbols into the BWT last column.
 
@@ -62,7 +65,10 @@ def mtf_rle2_decode(
     (False if a run overflows out_capacity or a digit run exceeds any
     legal length). W is min(max n_bwt, out_capacity), at least 1 (one
     host sync): the JAX form's (out_capacity,) row cut at W, as every
-    entry past n_bwt is 0.
+    entry past n_bwt is 0. ``lap`` is called with "segments" (the
+    run sums and the literal compaction), "chunk_perms", "chunk_scan" and
+    "expand" as each step ends (a stage clock's lap, for a
+    clocked decode).
     """
     B, m = symbols.shape
     if m % CHUNK:
@@ -92,27 +98,25 @@ def mtf_rle2_decode(
     run_total = csum.gather(1, (seg_end - 1).clamp(0, m - 1).long()) - excl_before
 
     # --- literal compaction: js[rank] = sym - 1, padding j = 0 (identity) ---
+    # Every literal's sym - 1 lies in [1, 255] (sym < eob <= 257), so uint8
+    # holds it.
     lit_i = is_lit.to(i32)
     lit_rank = torch.cumsum(lit_i, 1, dtype=i32) - lit_i
-    js = torch.zeros(B, m + 1, dtype=torch.int64, device=dev)
-    js.scatter_(1, torch.where(is_lit, lit_rank, m).long(), (sym - 1).long())
-    js = js[:, :m]
+    js = torch.zeros(B, m + 1, dtype=torch.uint8, device=dev)
+    js.scatter_(1, torch.where(is_lit, lit_rank, m).long(), (sym - 1).to(torch.uint8))
+    js = js[:, :m].contiguous()
 
-    # --- inverse MTF: chunk permutations in uint8, then their scan ---
-    n_chunks = m // CHUNK
-    jc = js.view(B, n_chunks, CHUNK)
-    k256 = torch.arange(256, device=dev)
-    q0 = k256.to(torch.uint8).expand(B, n_chunks, 256)
-    q = q0.clone()
-    emit = torch.zeros(B, n_chunks, CHUNK, dtype=torch.uint8, device=dev)
-    for i in range(CHUNK):
-        j = jc[:, :, i : i + 1]  # (B, n_chunks, 1)
-        e = q.gather(2, j)
-        emit[:, :, i : i + 1] = e
-        q = torch.where(k256 == 0, e, torch.where(k256 <= j, torch.roll(q, 1, 2), q))
+    lap("segments")
+
+    # --- inverse MTF: chunk permutations (mtf_dec), then their scan ---
+    q, emit = chunk_perms(js)
+    del js
+    lap("chunk_perms")
     q_incl = inclusive_scan(q)
-    q_excl = torch.cat([q0[:, :1], q_incl[:, :-1]], 1)
+    q_excl = torch.cat([torch.arange(256, device=dev).to(torch.uint8).expand(B, 1, 256), q_incl[:, :-1]], 1)
     glob_emit = q_excl.gather(2, emit.long())
+    del q, q_incl, q_excl
+    lap("chunk_scan")
     lit_vals = initial_list.to(i32).gather(1, glob_emit.view(B, m).long())  # byte per literal rank
 
     # --- per-symbol byte values ---
@@ -135,4 +139,5 @@ def mtf_rle2_decode(
     src = torch.searchsorted(out_cum.contiguous(), q_pos, right=True).clamp(0, m - 1)
     byte = torch.where(head.gather(1, src), run_val.gather(1, src), lit_val_at.gather(1, src))
     bwt = torch.where(q_pos < n_bwt[:, None], byte, 0).to(torch.uint8)
+    lap("expand")
     return {"bwt": bwt, "n_bwt": n_bwt, "ok": ok}

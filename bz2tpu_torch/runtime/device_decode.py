@@ -6,9 +6,10 @@ Port of bz2tpu/runtime/device_decode.py:
           block's small header (symbol map, selectors, code tables) is
           parsed with the BitReader;
   device  per batch of up to 8 same-shape blocks: the jump-map Huffman
-          decode (ops/huffman_dec.py, with the dec_chain kernel), run
-          expansion + inverse MTF (ops/mtf_dec.py) and the pointer-doubling
-          inverse BWT (ops/ibwt.py), then one copy back per batch;
+          decode (ops/huffman_dec.py, with the dec_chain and dec_symbols
+          kernels), run expansion + inverse MTF (ops/mtf_dec.py, with the
+          mtf_dec kernel) and the pointer-doubling inverse BWT
+          (ops/ibwt.py), then one copy back per batch;
   host    native inverse RLE1 + CRC, the block and stream CRC checks, and
           the ordered concatenation.
 
@@ -219,22 +220,26 @@ def batch_tensors(rows: list[dict], device: torch.device) -> dict[str, torch.Ten
 
 
 def _decode_batch(
-    words, rows: list[dict], nbc: int, out_cap: int, device, clock: StageClock | None
+    words, rows: list[dict], nbc: int, out_cap: int, device, clock: StageClock | None,
+    split: dict | None = None,
 ) -> list[bytes] | None:
     """Decode a batch of same-bucket blocks to their BWT-inverted bytes
-    (still RLE1-encoded); None if any block fails validation."""
+    (still RLE1-encoded); None if any block fails validation. With a clock
+    and ``split``, the steps inside "huffman" and "mtf" also add their
+    seconds to ``split``."""
     bt = batch_tensors(rows, device)
     _lap(clock, "tables")
+    lap = StageClock(split, device).lap if clock is not None and split is not None else lambda stage: None
     hd = decode_symbol_data(
         words, bt["start_bit"], bt["end_bit"], bt["selectors"], bt["n_groups"], bt["base"],
-        bt["perm"], bt["eob"], bt["lut"], bt["lut_idx"], n_bits_cap=nbc,
+        bt["perm"], bt["eob"], bt["lut"], bt["lut_idx"], n_bits_cap=nbc, lap=lap,
     )
     del bt["lut"]
     _lap(clock, "huffman")
     G = bt["selectors"].shape[1]
     m = -(-G * C.HUFFMAN_GROUP_SIZE // CHUNK) * CHUNK
     syms = torch.nn.functional.pad(hd["symbols"], (0, m - hd["symbols"].shape[1]), value=-1)
-    md = mtf_rle2_decode(syms, hd["n_sym"], bt["initial_list"], bt["eob"], out_capacity=out_cap)
+    md = mtf_rle2_decode(syms, hd["n_sym"], bt["initial_list"], bt["eob"], out_capacity=out_cap, lap=lap)
     ok = hd["ok"] & md["ok"] & (bt["orig_ptr"] < md["n_bwt"])
     del hd, syms
     if not bool(ok.all()):
@@ -247,7 +252,7 @@ def _decode_batch(
 
 
 def _decompress_device_inner(
-    stream: bytes, verify_crc: bool, device: torch.device, timings: dict | None = None
+    stream: bytes, verify_crc: bool, device: torch.device, timings: dict | None = None, split: dict | None = None
 ) -> bytes | None:
     """The device decode, or None where the stream must go to the host
     decoder: exactly where bz2tpu's form returns None.
@@ -256,7 +261,10 @@ def _decompress_device_inner(
     header parse, host), "tables" (table packing, upload, length LUTs),
     "huffman", "mtf" (with validation), "ibwt" (with the copy back) and
     "rle1_crc" (inverse RLE1 and CRCs, host); every lap waits for the
-    device (see ops/pipeline.StageClock).
+    device (see ops/pipeline.StageClock). With ``split`` too, the steps of
+    "huffman" accumulate there under "jump_maps", "dec_chain" (D1),
+    "dec_symbols" (D3) and "validate", and those of "mtf" under
+    "segments", "chunk_perms" (D4), "chunk_scan" and "expand".
     """
     clock = None if timings is None else StageClock(timings, device)
     plan = parse_blocks(stream)
@@ -268,7 +276,7 @@ def _decompress_device_inner(
     out_cap = _pow2_at_least((stream[3] - ord("0")) * C.BLOCK_SIZE_BASE)
     results: list[bytes] = [b""] * len(parsed)
     for nbc, group in batches(parsed):
-        walked = _decode_batch(words, [parsed[i] for i in group], nbc, out_cap, device, clock)
+        walked = _decode_batch(words, [parsed[i] for i in group], nbc, out_cap, device, clock, split)
         if walked is None:
             return None
         for i, data in zip(group, walked):

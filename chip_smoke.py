@@ -27,15 +27,20 @@ Phases (any failure exits non-zero; nothing is caught):
      the JAX package and its NumPy oracle); prints MB/s of an unclocked run
      against stdlib bz2 on the same bytes, then the per-stage split of a
      second, clocked run;
-  4. the fully-device path on the same corpus at level 9: (a) the dec_chain
-     kernel against its plain loop at the shapes of the stream's batch
-     with the most Huffman groups (exact), its ns per group of the longest
-     chain, and on every batch of the port's and stdlib's 16 MB streams
-     the share of steps whose window missed (tools/time_dec_chain.py times
-     the kernel of two checkouts on those batches);
+  4. the fully-device path on the same corpus at level 9: (a) the decode
+     kernels against their plain loops (exact): dec_chain at the shapes of
+     the stream's batch with the most Huffman groups, with its ns per
+     group of the longest chain; dec_symbols and mtf_dec on the inputs a
+     decode of the batch with the most symbols hands them; and on every
+     batch of the port's and stdlib's 16 MB streams dec_chain's share of
+     steps whose window missed (tools/time_dec_chain.py times the kernel
+     of two checkouts on those batches);
      (b) decompress_device of phase 3's stream and of stdlib's, each equal to the corpus and
-     decoded on the card with no host fallback, timed against the host C
-     decoder and stdlib bz2; (c) compress_device_intake of the corpus,
+     decoded on the card with no host fallback, with dec_chain,
+     dec_symbols and mtf_dec launched on each, timed against the host C
+     decoder and stdlib bz2; a clocked decode with the steps of its
+     "huffman" and "mtf" stages apart; one torch.profiler trace of a warm
+     decode of the port's stream (device events, busy share, top ops); (c) compress_device_intake of the corpus,
      decoded by stdlib bz2, byte-identical to the CPU path on its first
      2 MB, MB/s against stdlib, with every encode kernel launched;
      then the peak device memory;
@@ -53,8 +58,8 @@ Phases (any failure exits non-zero; nothing is caught):
      fresh instance: byte-identical to (a); (c) bz2tpu_torch.open(...,
      "wb") on the card, read back with a seek and read1; (d) --backend
      device byte-identical to phase 4c's stream, its --dec with
-     dec_chain launched, and --recover on a copy with one block's bytes
-     flipped salvaging every other block;
+     dec_chain, dec_symbols and mtf_dec launched, and --recover on a
+     copy with one block's bytes flipped salvaging every other block;
   6. the block mesh (bz2tpu_torch.parallel) on the same corpus at level 9,
      split into one batch padded to a multiple of the rank count, encoded
      with encode_blocks_sharded and stitched with stitch_stream_shard:
@@ -90,7 +95,8 @@ Each phase's main path runs with every launch count set to 0 just before
 it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package. The line before
 the last is the kernel table as JSON: per kernel its launches on the 16 MB
-compress (dec_chain: on the decode of the port's stream), its time and
+compress (dec_chain, dec_symbols, mtf_dec: on the decode of the port's
+stream), its time and
 its plain version's at the shapes above, the library call's where one
 computes the same function, and its bound: the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s, or its operations over
@@ -168,6 +174,34 @@ def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None) -> 
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def device_profile(fn, top: int = 12) -> dict:
+    """fn() once under torch.profiler with device activity only: its
+    result and wall, the device events the profiler saw (kernels apart
+    from copies and sets), the device busy seconds, and the ``top`` op
+    names by device time with their launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result, wall = timed(fn)
+    per_name: dict[str, list] = {}
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CUDA and avg.self_device_time_total > 0:
+            entry = per_name.setdefault(avg.key, [0.0, 0])
+            entry[0] += avg.self_device_time_total / 1e6
+            entry[1] += avg.count
+    busy = sum(s for s, _ in per_name.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    return {
+        "result": result, "wall_s": wall, "busy_s": busy,
+        "device_events": sum(c for _, c in per_name.values()),
+        "kernel_events": sum(c for k, (_, c) in per_name.items() if not k.startswith(("Memcpy", "Memset"))),
+        "top": [{"name": k[:80], "s": sec, "launches": c} for k, (sec, c) in ranked[:top]],
+    }
+
+
 def zero(*counts) -> None:
     for c in counts:
         for name in c:
@@ -183,17 +217,21 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-# name -> (source, the TPU kernel it replaces). dec_chain and
-# huffman_plan replace no pl.pallas_call: they are the device loops of
-# the Huffman group chain (lax.fori_loop) and of the Huffman refinement
-# (lax.while_loop around the code-length tree scan).
+# name -> (source, the TPU kernel it replaces). dec_chain, dec_symbols,
+# mtf_dec and huffman_plan replace no pl.pallas_call: they are the device
+# loops of the Huffman group chain, the group-symbol decode and the
+# inverse MTF's chunk permutations (each a lax.fori_loop) and of the
+# Huffman refinement (lax.while_loop around the code-length tree scan).
 KERNELS = {
     "bwt_sort": ("bz2tpu_torch/csrc/bwt_sort.cu", "bz2tpu/ops/bwt_pallas.py:118"),
     "bwt_rerank": ("bz2tpu_torch/csrc/bwt_rerank.cu", "bz2tpu/ops/bwt_pallas.py:243"),
     "mtf_ranks": ("bz2tpu_torch/csrc/mtf_ranks.cu", "bz2tpu/ops/mtf_pallas.py:72"),
     "huffman_plan": ("bz2tpu_torch/csrc/huffman_plan.cu", "bz2tpu/ops/huffman.py:278"),
     "dec_chain": ("bz2tpu_torch/csrc/dec_chain.cu", "bz2tpu/ops/huffman_dec.py:237"),
+    "dec_symbols": ("bz2tpu_torch/csrc/dec_symbols.cu", "bz2tpu/ops/huffman_dec.py:265"),
+    "mtf_dec": ("bz2tpu_torch/csrc/mtf_dec.cu", "bz2tpu/ops/mtf_dec.py:110"),
 }
+DECODE_KERNELS = ("dec_chain", "dec_symbols", "mtf_dec")
 
 
 
@@ -213,7 +251,7 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     BZ2File, the device backend and --recover, on the 16 MB corpus."""
     import bz2tpu_torch
     from bz2tpu_torch import native
-    from bz2tpu_torch.ops import bwt_cuda, dec_cuda, huffman_cuda, mtf_cuda
+    from bz2tpu_torch.ops import bwt_cuda, dec_cuda, huffman_cuda, mtf_cuda, mtf_dec_cuda
     from bz2tpu_torch.runtime import stream
 
     mb = len(corpus) / 1e6
@@ -334,10 +372,13 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     with open(dev_out, "rb") as f:
         if rc != 0 or f.read() != corpus:
             raise AssertionError(f"--backend device --dec did not give the corpus back: {err}")
-    if dec_cuda.LAUNCHES["dec_chain"] <= 0:
-        raise AssertionError("kernel dec_chain was not launched by --backend device --dec")
+    dec_launches = {**dec_cuda.LAUNCHES, **mtf_dec_cuda.LAUNCHES}
+    for name in DECODE_KERNELS:
+        if dec_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by --backend device --dec")
     print(f"--backend device: compress {mb / dev_s:.3f} MB/s byte-identical to compress_device_intake; "
-          f"--dec {mb / dev_dec_s:.3f} MB/s with dec_chain launched {dec_cuda.LAUNCHES['dec_chain']} times")
+          f"--dec {mb / dev_dec_s:.3f} MB/s with the decode kernels launched "
+          f"{ {name: dec_launches[name] for name in DECODE_KERNELS} }")
     headers, _ = native.scan_blocks(packed)
     if len(headers) != len(blocks):
         raise AssertionError(f"{len(headers)} block markers in a stream of {len(blocks)} blocks")
@@ -794,7 +835,9 @@ def main() -> int:
 
     import bz2tpu_torch
     from bz2tpu_torch import _build
+    from bz2tpu_torch.format import constants as C
     from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda
+    from bz2tpu_torch.ops import mtf_dec, mtf_dec_cuda
     from bz2tpu_torch.ops.pipeline import encode_batch
     from bz2tpu_torch.runtime import device_decode
     from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH, HAVE_NATIVE, _batch_tensors, split_blocks
@@ -932,7 +975,8 @@ def main() -> int:
     print(f"doubling rounds per block, by batch: {rounds}; batched sorts {want_sorts}, "
           f"per-block sorts {sum(map(sum, rounds))}")
 
-    all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES, dec_cuda.LAUNCHES)
+    all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES, dec_cuda.LAUNCHES,
+                  mtf_dec_cuda.LAUNCHES)
     encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks", "huffman_plan")
     n_batches = -(-len(blocks) // DEFAULT_BATCH)
     torch.cuda.reset_peak_memory_stats()
@@ -1000,7 +1044,57 @@ def main() -> int:
     _, misses = dec_cuda.group_starts(jump50, tbl, n_groups, with_misses=True)
     print(f"dec_chain: {stats['dec_chain']['ms'] * 1e6 / longest:.1f} ns per group of the longest chain "
           f"({longest} groups), direct reads {misses.tolist()}")
-    del bt, words, jump50, tbl, n_groups
+    del jump50
+    # dec_symbols and mtf_dec on the inputs a decode of the stream's batch
+    # with the most symbols hands them (captured on the way).
+    nbc3, group3 = max(device_decode.batches(parsed),
+                       key=lambda b: len(b[1]) * max(parsed[i]["selectors"].size for i in b[1]))
+    captured = {}
+    real_groups, real_perms = huffman_dec.decode_groups, mtf_dec.chunk_perms
+
+    def capture(name, real):
+        def wrapped(*args):
+            captured[name] = args
+            return real(*args)
+        return wrapped
+
+    huffman_dec.decode_groups = capture("dec_symbols", real_groups)
+    mtf_dec.chunk_perms = capture("mtf_dec", real_perms)
+    try:
+        out_cap = device_decode._pow2_at_least((out[3] - ord("0")) * C.BLOCK_SIZE_BASE)
+        if device_decode._decode_batch(words, [parsed[i] for i in group3], nbc3, out_cap, dev, None) is None:
+            raise AssertionError("the largest batch of the port's stream fails its decode")
+    finally:
+        huffman_dec.decode_groups, mtf_dec.chunk_perms = real_groups, real_perms
+    args3 = captured["dec_symbols"]
+    words3, offs, tbl3, _, lut_idx, base, perm = args3
+    syms_w, lens_w = dec_cuda.decode_groups_ref(*args3)
+    # dec_symbols' bytes: the group starts and tables read, the window
+    # words and LUT entries its symbols reach (each once), the symbols and
+    # lengths written; its operations: some 8 integer operations a symbol.
+    n3 = syms_w.numel()
+    lens3 = lens_w.view(*offs.shape, -1).long()
+    pos = offs[:, :, None] + lens3.cumsum(2) - lens3
+    lut_at = (lut_idx.long().gather(1, tbl3.long())[:, :, None] << dec_cuda.LUT_BITS) + (dec_cuda.window23(words3, pos) >> 3)
+    n_words = torch.unique((pos >> 3).clamp(0, words3.numel() - 1)).numel()
+    d3_bytes = (8 * n_words + torch.unique(lut_at).numel() + 12 * offs.numel()
+                + 4 * (lut_idx.numel() + base.numel() + perm.numel()) + 8 * n3)
+    print(f"dec_symbols shapes: groups {tuple(offs.shape)}, tables {tuple(base.shape[:2])}, LUT rows "
+          f"{args3[3].shape[0]}; {n3} symbols, {n_words} window words and {torch.unique(lut_at).numel()} LUT "
+          f"entries reached, {int((syms_w == -2).sum())} symbols -2")
+    stats["dec_symbols"] = compare("dec_symbols", lambda: dec_cuda.decode_groups(*args3),
+                                   lambda: dec_cuda.decode_groups_ref(*args3), 3, nbytes=d3_bytes, ops=8 * n3)
+    del syms_w, lens_w, lens3, pos, lut_at, args3, words3, offs, tbl3, lut_idx, base, perm
+    (js,) = captured.pop("mtf_dec")
+    # mtf_dec's bytes: the move indices read, the permutations (256 B a
+    # chunk) and emits (128 B a chunk) written; its operations: each move
+    # shifts j + 1 list entries.
+    print(f"mtf_dec shapes: move indices {tuple(js.shape)} ({js.shape[1] // mtf_dec_cuda.CHUNK} chunks a block), "
+          f"literals {int((js > 0).sum())}")
+    stats["mtf_dec"] = compare("mtf_dec", lambda: mtf_dec_cuda.chunk_perms(js),
+                               lambda: mtf_dec_cuda.chunk_perms_ref(js), 3, nbytes=4 * js.numel(),
+                               ops=int(js.long().sum()) + js.numel())
+    del js, captured, bt, words, tbl, n_groups
     # Every batch of both 16 MB streams: the share of the steps that read
     # the map directly (their window missed), and the kernel's time on the
     # batch where that share is largest.
@@ -1026,14 +1120,22 @@ def main() -> int:
     # (b) decode on the card: the port's stream and stdlib's, no host fallback.
     device_decode.decompress_device(stdlib_bz2.compress(head, LEVEL))  # warm-up
     torch.cuda.reset_peak_memory_stats()
+
+    def decode_launches() -> dict:
+        got = {**dec_cuda.LAUNCHES, **mtf_dec_cuda.LAUNCHES}
+        return {name: got[name] for name in DECODE_KERNELS}
+
     zero(*all_counts)
     dec_port, dec_port_s = timed(lambda: device_decode._decompress_device_inner(out, True, dev))
-    dec_launches = dec_cuda.LAUNCHES["dec_chain"]
-    print(f"decode-path kernel launches (port's stream): {dict(dec_cuda.LAUNCHES)}")
-    if dec_launches <= 0:
-        raise AssertionError("kernel dec_chain was not launched on the device decode path")
+    dec_launches = decode_launches()
+    zero(*all_counts)
     dec_stock, dec_stock_s = timed(lambda: device_decode._decompress_device_inner(stock, True, dev))
+    stock_launches = decode_launches()
     decode_peak = torch.cuda.max_memory_allocated()
+    print(f"decode-path kernel launches: port's stream {dec_launches}, stdlib's stream {stock_launches}")
+    for name in DECODE_KERNELS:
+        if dec_launches[name] <= 0 or stock_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the device decode of both 16 MB streams")
     if dec_port is None or dec_stock is None:
         raise AssertionError("the device decode left a 16 MB stream to the host decoder")
     if dec_port != corpus or dec_stock != corpus:
@@ -1049,12 +1151,25 @@ def main() -> int:
           f"stdlib bz2.decompress {mb / stdlib_dec_s:.3f} MB/s ({stdlib_dec_s:.3f} s)")
     print(f"  peak device memory of the two decodes: {decode_peak} B ({decode_peak / 2**30:.3f} GiB)")
     dec_timings: dict[str, float] = {}
+    dec_split: dict[str, float] = {}
     clocked_dec, clocked_dec_s = timed(
-        lambda: device_decode._decompress_device_inner(out, True, dev, dec_timings))
+        lambda: device_decode._decompress_device_inner(out, True, dev, dec_timings, dec_split))
     if clocked_dec != corpus:
         raise AssertionError("the clocked device decode differs from the input")
-    stages = ", ".join(f"{k} {v:.3f} s" for k, v in dec_timings.items())
+    stages = ", ".join(f"{k} {v:.4f} s" for k, v in dec_timings.items())
+    steps = ", ".join(f"{k} {v:.4f} s" for k, v in dec_split.items())
     print(f"  clocked decode of the port's stream {clocked_dec_s:.3f} s, per stage (synchronised): {stages}")
+    print(f"  steps of huffman and mtf (synchronised): {steps}")
+    trace = device_profile(lambda: device_decode._decompress_device_inner(out, True, dev))
+    if trace["result"] != corpus:
+        raise AssertionError("the traced device decode differs from the input")
+    print(f"  traced decode of the port's stream (torch.profiler, device activity): wall {trace['wall_s']:.4f} s "
+          f"profiled, {dec_port_s:.4f} s unprofiled; {trace['device_events']} device events "
+          f"({trace['kernel_events']} kernels); device busy {trace['busy_s']:.4f} s: "
+          f"{trace['busy_s'] / trace['wall_s']:.4f} of the profiled wall, {trace['busy_s'] / dec_port_s:.4f} "
+          f"of the unprofiled one")
+    print("  top device ops: " + "; ".join(f"{t['name']} {t['s'] * 1e3:.3f} ms over {t['launches']}"
+                                         for t in trace["top"]))
 
     # (c) compress with the intake on the card.
     t0 = time.perf_counter()
@@ -1077,7 +1192,7 @@ def main() -> int:
           f"{len(intake_out) / len(corpus):.6f}; stdlib {mb / stock_s:.3f} MB/s (phase 3)")
     print(f"  peak device memory of the intake compress: {torch.cuda.max_memory_allocated()} B")
     print(f"  card: {card}")
-    launches["dec_chain"] = dec_launches
+    launches.update(dec_launches)
 
     # -- 5. files and streams on the card -------------------------------------
     block_rounds = [r for batch_rounds in rounds for r in batch_rounds]

@@ -1,7 +1,8 @@
 """bz2tpu_torch's CUDA kernels on the card: each kernel against its plain
 torch version (exact), the stages and the whole stream on the card against
 the CPU path, for compress (levels 1 and 5), compress_device_intake,
-decompress_device, the stream and file layer (compress_file, a
+decompress_device (with its dec_symbols and mtf_dec kernels at the
+decode's own shapes, on a good and a corrupt stream), the stream and file layer (compress_file, a
 checkpoint resumed, BZ2File), the per-block encode of the block mesh
 (encode_blocks, pack_blocks then concat_block_words), the per-block
 compress path (BZ2TPU_DEVICE_STITCH=0) and an exported build with kernels
@@ -21,7 +22,8 @@ import pytest
 import torch
 
 import bz2tpu_torch
-from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, mtf, mtf_cuda
+from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda, mtf_dec
+from bz2tpu_torch.ops import mtf_dec_cuda
 from bz2tpu_torch.ops.bwt import bwt_stage
 from bz2tpu_torch.runtime import device_decode
 from bz2tpu_torch.runtime.compressor import _batch_tensors, split_blocks
@@ -383,15 +385,110 @@ def test_decompress_device_on_card_matches_cpu(cuda):
     data = b"".join(_corpus(kind, 250_000, 21 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
     for level in (1, 9):
         comp = stdlib_bz2.compress(data, level)
-        dec_cuda.LAUNCHES["dec_chain"] = 0
+        for counts in (dec_cuda.LAUNCHES, mtf_dec_cuda.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
         assert device_decode._decompress_device_inner(comp, True, cuda) == data  # no host fallback
-        assert dec_cuda.LAUNCHES["dec_chain"] > 0
+        assert min(dec_cuda.LAUNCHES.values()) > 0 and mtf_dec_cuda.LAUNCHES["mtf_dec"] > 0
+        assert dec_cuda.LAUNCHES["dec_chain"] == dec_cuda.LAUNCHES["dec_symbols"] == mtf_dec_cuda.LAUNCHES["mtf_dec"]
         assert device_decode._decompress_device_inner(comp, True, torch.device("cpu")) == data
         assert bz2tpu_torch.decompress_device(comp) == data
     bad = bytearray(stdlib_bz2.compress(data, 1))
     bad[len(bad) // 2] ^= 0x10
     with pytest.raises(ValueError):
         bz2tpu_torch.decompress_device(bytes(bad))
+
+
+def _random_group_inputs(gen, B, T, U, G, n_bytes):
+    """Arbitrary inputs of dec_symbols on the card: LUT lengths 0..22 (some
+    beyond 20), bases that put some indices out of [0, 258), starts that
+    reach past the stream's end."""
+    dev = gen.device
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, device=dev, generator=gen, dtype=torch.int64).to(dtype)
+
+    words = huffman_dec.window_words(ints(0, 256, (n_bytes,), torch.uint8))
+    return (words, ints(0, 8 * n_bytes + 200, (B, G), torch.int64), ints(0, T, (B, G)),
+            ints(0, 23, (U, 1 << 20), torch.int8), ints(0, U, (B, T)), ints(-300, 1 << 18, (B, T, 21)),
+            ints(0, 258, (B, T, 258)))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1, 16), (3, 6, 7, 300, 5_000), (8, 6, 49, 18_002, 1 << 20)])
+def test_dec_symbols_kernel_matches_plain(cuda, shape):
+    B, T, U, G, n_bytes = shape
+    gen = torch.Generator(device=cuda).manual_seed(31 + G)
+    args = _random_group_inputs(gen, B, T, U, G, n_bytes)
+    want = dec_cuda.decode_groups_ref(*args)
+    launches = dec_cuda.LAUNCHES["dec_symbols"]
+    for _ in range(2):
+        got = dec_cuda.decode_groups(*args)
+        _equal(got[0], want[0])
+        _equal(got[1], want[1])
+    assert dec_cuda.LAUNCHES["dec_symbols"] == launches + 2
+    assert bool((want[0] == -2).any()) and bool((want[1] == 1).any())
+    with pytest.raises(ValueError):
+        dec_cuda.decode_groups(args[0], args[1].to(torch.int32), *args[2:])
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 57, 7_032])
+def test_mtf_dec_kernel_matches_plain(cuda, n_chunks):
+    gen = torch.Generator(device=cuda).manual_seed(41 + n_chunks)
+    B = 3 if n_chunks < 1000 else 8
+    js = torch.randint(0, 256, (B, 128 * n_chunks), device=cuda, generator=gen).to(torch.uint8)
+    js[0, : 64 * n_chunks] = 255
+    js[1, 100:] = 0  # padding: the identity
+    js[2, ::3] = 0
+    want = mtf_dec_cuda.chunk_perms_ref(js)
+    launches = mtf_dec_cuda.LAUNCHES["mtf_dec"]
+    for _ in range(2):
+        got = mtf_dec_cuda.chunk_perms(js)
+        _equal(got[0], want[0])
+        _equal(got[1], want[1])
+    assert mtf_dec_cuda.LAUNCHES["mtf_dec"] == launches + 2
+    off = torch.zeros(128 * B + 16, dtype=torch.uint8, device=cuda)[1 : 1 + 128 * B].view(B, 128)
+    with pytest.raises(ValueError):
+        mtf_dec_cuda.chunk_perms(off)  # off 16-byte alignment
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decode_kernels_on_a_stream_match_plain(cuda, monkeypatch, corrupt):
+    # D3 and D4 at the decode's own shapes: every call of a whole decode on
+    # the card, held against the plain version on the same inputs. The
+    # corrupt stream's last bit of block 0 (inside its EOB code) sends that
+    # block's walk past its end.
+    data = b"".join(_corpus(kind, 200_000, 51 + i).tobytes() for i, kind in enumerate(("text", "random", "runs")))
+    comp = stdlib_bz2.compress(data, 1)
+    if corrupt:
+        parsed, _ = device_decode.parse_blocks(comp)
+        pos = parsed[0]["end_bit"] - 1
+        comp = bytearray(comp)
+        comp[pos >> 3] ^= 0x80 >> (pos & 7)
+        comp = bytes(comp)
+    checked = {"dec_symbols": 0, "mtf_dec": 0}
+    real_groups, real_perms = huffman_dec.decode_groups, mtf_dec.chunk_perms
+
+    def groups(*args):
+        got = real_groups(*args)
+        want = dec_cuda.decode_groups_ref(*args)
+        _equal(got[0], want[0])
+        _equal(got[1], want[1])
+        checked["dec_symbols"] += 1
+        return got
+
+    def perms(js):
+        got = real_perms(js)
+        want = mtf_dec_cuda.chunk_perms_ref(js)
+        _equal(got[0], want[0])
+        _equal(got[1], want[1])
+        checked["mtf_dec"] += 1
+        return got
+
+    monkeypatch.setattr(huffman_dec, "decode_groups", groups)
+    monkeypatch.setattr(mtf_dec, "chunk_perms", perms)
+    out = device_decode._decompress_device_inner(comp, True, cuda)
+    assert (out is None) if corrupt else (out == data)
+    assert checked["dec_symbols"] > 0 and checked["mtf_dec"] > 0
 
 
 def test_compress_device_intake_on_card_matches_cpu(cuda):
