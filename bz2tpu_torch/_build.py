@@ -52,6 +52,9 @@ SIGNATURES = {
     "bz2t_huffman_plan": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "bz2t_dec_symbols": (_P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "bz2t_mtf_dec": (_P, _L, _P, _P, _P),
+    "bz2t_crc_ranges_work": (_L, _I),
+    "bz2t_crc_ranges": (_P, _L, _P, _I, _P, _P, _P),
+    "bz2t_block_cuts": (_P, _P, _L, _P, _L, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

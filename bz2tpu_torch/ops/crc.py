@@ -1,12 +1,15 @@
 """CRC-32/BZIP2 of many byte ranges of one buffer (torch).
 
-Port of bz2tpu/ops/crc.py:crc32_ranges. CRC over GF(2) is affine, so one
-unmasked pass over the buffer cut into L equal lanes (all lanes advance
-one byte per step) gives every lane's running state; the pass captures
-the state at each range endpoint's in-lane offset as it goes by. A
-Kogge-Stone fold over the lanes gives the prefix state at each lane
-boundary, and the ladders of "advance past 2^k zero bytes" operators turn
-endpoint states into range CRCs:
+Port of bz2tpu/ops/crc.py:crc32_ranges. ``crc32_ranges`` launches the D5
+kernel (ops/crc_cuda.py, csrc/crc_ranges.cu) for a chunk on a CUDA card
+and takes the plain version, ``crc32_ranges_ref``, for one on the CPU.
+
+The plain version: CRC over GF(2) is affine, so one unmasked pass over the
+buffer cut into L equal lanes (all lanes advance one byte per step) gives
+every lane's running state; the pass captures the state at each range
+endpoint's in-lane offset as it goes by. A Kogge-Stone fold over the lanes
+gives the prefix state at each lane boundary, and the ladders of "advance
+past 2^k zero bytes" operators turn endpoint states into range CRCs:
 
     crc[s, e) from init I  =  M^(e-s)(I xor S(s)) xor S(e)
 
@@ -27,9 +30,11 @@ import numpy as np
 import torch
 
 from bz2tpu_torch.format.crc32 import CRC32_TABLE, _op_compose, _op_shift_one_byte, shift_operator
+from bz2tpu_torch.ops import crc_cuda
 
 MASK32 = 0xFFFFFFFF
 DEFAULT_LANES = 1 << 16
+_INDEX_DTYPES = (torch.int32, torch.int64)
 
 
 @functools.cache
@@ -78,16 +83,12 @@ def _apply_ladder(ops: torch.Tensor, exponent: torch.Tensor, state: torch.Tensor
     return state
 
 
-def crc32_ranges(
+def crc32_ranges_ref(
     chunk: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor, *, lanes: int = DEFAULT_LANES
 ) -> torch.Tensor:
-    """Finalized CRC-32/BZIP2 of chunk[starts[b]:ends[b]] for each range b.
-
-    chunk: (N,) uint8 (bytes outside every range may be anything);
-    starts/ends: (B,) integer ranges, 0 <= start <= end <= N. The lane
-    count is the largest power of two <= ``lanes`` dividing N. Returns
-    (B,) int64 holding 32-bit CRCs.
-    """
+    """Plain version of crc32_ranges: the lane loop, the fold and the
+    ladders as torch ops. The lane count is the largest power of two <=
+    ``lanes`` dividing N."""
     n = chunk.shape[0]
     dev = chunk.device
     lanes_eff = 1
@@ -134,3 +135,30 @@ def crc32_ranges(
     span = (ends - starts).to(torch.int64)
     raw = _apply_ladder(fwd, span, s_pts[:b] ^ MASK32) ^ s_pts[b:]
     return raw ^ MASK32
+
+
+def crc32_ranges(
+    chunk: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor, *, lanes: int = DEFAULT_LANES
+) -> torch.Tensor:
+    """Finalized CRC-32/BZIP2 of chunk[starts[b]:ends[b]] for each range b.
+
+    chunk: (N,) uint8, N >= 1 (bytes outside every range may be anything);
+    starts/ends: (B,) int32 or int64 ranges on chunk's device, 0 <= start <= end
+    <= N, in any order and overlapping or empty. Returns (B,) int64
+    holding 32-bit CRCs. A CPU chunk takes the plain version (``lanes`` as
+    there); a CUDA chunk launches the kernel, which has no lanes.
+    """
+    if chunk.dtype != torch.uint8 or chunk.dim() != 1 or chunk.shape[0] == 0 or not chunk.is_contiguous():
+        raise ValueError(f"chunk must be a contiguous non-empty (N,) uint8 tensor, got {chunk.dtype} "
+                         f"{tuple(chunk.shape)}")
+    for name, t in (("starts", starts), ("ends", ends)):
+        if t.dtype not in _INDEX_DTYPES or t.dim() != 1 or t.shape != starts.shape:
+            raise ValueError(f"{name} must be a (B,) int32 or int64 tensor like starts, got {t.dtype} {tuple(t.shape)}")
+        if t.device != chunk.device:
+            raise ValueError(f"{name} is on {t.device}, the chunk on {chunk.device}")
+    dev = chunk.device
+    if dev.type == "cpu":
+        return crc32_ranges_ref(chunk, starts, ends, lanes=lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return crc_cuda.crc_ranges(chunk, starts, ends)

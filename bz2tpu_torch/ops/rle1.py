@@ -4,8 +4,10 @@ Port of bz2tpu/ops/rle1.py. Run heads are change flags; a piece is at
 most 255 raw bytes of one run (the oracle's unit), so every output byte's
 position is a closed-form function of cumsums and cummaxes, and the
 encoded bytes land with two scatters. Blocks take whole pieces, greedily
-up to the level's capacity (stock bzip2's fill rule), by a searchsorted
-over the per-piece output cumsum.
+up to the level's capacity (stock bzip2's fill rule), by a search over
+the per-piece output cumsum: ``block_cuts`` launches the D6 kernel
+(ops/rle1_cuda.py, csrc/block_cuts.cu) for sums on a CUDA card and takes
+the plain loop, ``block_cuts_ref``, for sums on the CPU.
 
 JAX's ``.at[...].set(..., mode="drop")`` drops out-of-range indices, where
 torch raises; here masked entries go to one spare slot past the end,
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from bz2tpu_torch.format import constants as C
+from bz2tpu_torch.ops import rle1_cuda
 
 _BIG = 2**31 - 1
 
@@ -86,7 +89,7 @@ def rle1_encode(data: torch.Tensor, length: int) -> dict[str, torch.Tensor]:
     }
 
 
-def block_cuts(
+def block_cuts_ref(
     piece_out_cum: torch.Tensor,
     piece_raw_cum: torch.Tensor,
     n_pieces: torch.Tensor,
@@ -94,14 +97,8 @@ def block_cuts(
     cap: int,
     max_blocks: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stock bzip2's block-fill rule at piece boundaries: a block takes
-    pieces through the first one whose cumulative output reaches ``cap``
-    (it overshoots by up to 4 bytes), or the rest when none does.
-
-    Returns (out_cuts, raw_cuts, n_blocks): block b covers output bytes
-    [out_cuts[b-1], out_cuts[b]) and raw bytes [raw_cuts[b-1], raw_cuts[b])
-    with an implicit leading 0; unused slots repeat the final cut.
-    """
+    """Plain version of block_cuts: one searchsorted and a few selects a
+    block, issued from the host."""
     dev = piece_out_cum.device
     i32 = torch.int32
     last = (n_pieces - 1).clamp(min=0).long()
@@ -120,3 +117,42 @@ def block_cuts(
         raw_cuts.append(prev_raw)
         n_blocks = n_blocks + active.to(i32)
     return torch.stack(out_cuts), torch.stack(raw_cuts), n_blocks
+
+
+def block_cuts(
+    piece_out_cum: torch.Tensor,
+    piece_raw_cum: torch.Tensor,
+    n_pieces: torch.Tensor,
+    *,
+    cap: int,
+    max_blocks: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stock bzip2's block-fill rule at piece boundaries: a block takes
+    pieces through the first one whose cumulative output reaches ``cap``
+    (it overshoots by up to 4 bytes), or the rest when none does.
+
+    piece_out_cum, piece_raw_cum: (N,) int32 as rle1_encode gives them,
+    N >= 1; n_pieces: 0-dim int32, all on one device; max_blocks >= 1.
+    Returns (out_cuts, raw_cuts, n_blocks) on that device: block b covers
+    output bytes [out_cuts[b-1], out_cuts[b]) and raw bytes [raw_cuts[b-1],
+    raw_cuts[b]) with an implicit leading 0; unused slots repeat the final
+    cut. CPU sums take the plain version; CUDA sums launch the kernel, which
+    reads n_pieces on the card (no host sync).
+    """
+    for name, t in (("piece_out_cum", piece_out_cum), ("piece_raw_cum", piece_raw_cum)):
+        if (t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] == 0 or t.shape != piece_out_cum.shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous non-empty (N,) int32 tensor like piece_out_cum, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if n_pieces.dtype != torch.int32 or n_pieces.dim() != 0:
+        raise ValueError(f"n_pieces must be a 0-dim int32 tensor, got {n_pieces.dtype} {tuple(n_pieces.shape)}")
+    if max_blocks < 1:
+        raise ValueError(f"max_blocks must be at least 1, got {max_blocks}")
+    dev = piece_out_cum.device
+    if piece_raw_cum.device != dev or n_pieces.device != dev:
+        raise ValueError("piece_out_cum, piece_raw_cum and n_pieces must lie on one device")
+    if dev.type == "cpu":
+        return block_cuts_ref(piece_out_cum, piece_raw_cum, n_pieces, cap=cap, max_blocks=max_blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return rle1_cuda.block_cuts(piece_out_cum, piece_raw_cum, n_pieces, cap=cap, max_blocks=max_blocks)

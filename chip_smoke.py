@@ -34,7 +34,13 @@ Phases (any failure exits non-zero; nothing is caught):
      decode of the batch with the most symbols hands them; and on every
      batch of the port's and stdlib's 16 MB streams dec_chain's share of
      steps whose window missed (tools/time_dec_chain.py times the kernel
-     of two checkouts on those batches);
+     of two checkouts on those batches); the intake kernels against their
+     plain versions (exact) at the shapes of the intake's first 8 MiB
+     chunk of the corpus: block_cuts on its pieces' sums (with its latency
+     bound: a dependent load a live cut at L2's latency, which
+     tools/load_latency.py's pointer chase measures), crc_ranges on its blocks' ranges (beside the host C
+     splitter's time over the same bytes, a yardstick), on 16 ranges some
+     of them empty, and on a widened 32 MiB chunk;
      (b) decompress_device of phase 3's stream and of stdlib's, each equal to the corpus and
      decoded on the card with no host fallback, with dec_chain,
      dec_symbols and mtf_dec launched on each, timed against the host C
@@ -42,8 +48,16 @@ Phases (any failure exits non-zero; nothing is caught):
      "huffman" and "mtf" stages apart; one torch.profiler trace of a warm
      decode of the port's stream (device events, busy share, top ops); (c) compress_device_intake of the corpus,
      decoded by stdlib bz2, byte-identical to the CPU path on its first
-     2 MB, MB/s against stdlib, with every encode kernel launched;
-     then the peak device memory;
+     2 MB, MB/s against phase 3's compress and stdlib, with every encode
+     kernel launched and crc_ranges and block_cuts once per device_intake
+     call (each chunk window tried); the steps of the first chunk's
+     intake (rle1_encode, block_cuts, the rows gather, crc32_ranges,
+     each lapped inside device_intake by a stage clock), its
+     host-issued aten ops and device events; one torch.profiler trace of a
+     warm intake compress; then 24 MB of zeros, whose window widens from
+     8 to 16 to 32 MiB: byte-identical to the CPU path, decoded by stdlib
+     bz2, the two intake kernels launched once per window; then the peak
+     device memory;
   5. files and streams on the card, in a temporary directory: (a) the
      command line's default path, bz2tpu_torch.cli.main([file, "--size",
      "9", "--metrics"]) in this process, which is compress_file through
@@ -68,7 +82,7 @@ Phases (any failure exits non-zero; nothing is caught):
      one 16-block batch, K1 = K2 once per doubling round of each group of
      8 blocks that bwt_stage sorts together (ops/bwt.slot_limit); (b) two
      ranks on the one card, each a process running this script with
-     --mesh-rank, in a gloo group (NCCL refuses two ranks on one card):
+     --mesh-rank (--mesh-mode stitch), in a gloo group (NCCL refuses two ranks on one card):
      each encodes its 8 rows and both stitch the whole stream by
      collectives; rank 0's stream byte-identical to phase 3's, each rank's
      launches those of its own rows. A rank that fails, or that has not
@@ -81,7 +95,13 @@ Phases (any failure exits non-zero; nothing is caught):
      a gloo group (--mesh-mode compress), each calling bz2tpu_torch.compress
      itself with the per-block path on, which reaches the block mesh: both
      streams byte-identical to phase 3's, each rank's launches those of its
-     rows of each batch, the seconds and bytes of the all-gather;
+     rows of each batch, the seconds and bytes of the all-gather; (e) the
+     mesh's NCCL branch: a child process (this script with --mesh-mode nccl)
+     initialises a one-rank NCCL group from env:// through
+     parallel.initialize and runs block_mesh, encode_blocks_sharded,
+     gather_blocks and stitch_stream_shard (gather_ints then all-gathers a
+     CUDA tensor) and compress with the group up: each stream
+     byte-identical to phase 3's, the backend printed;
   7. cold start: three fresh processes (this script with --cold-start),
      each with an empty BZ2TPU_TORCH_CACHE_DIR in a temporary directory,
      each compressing the corpus's first 2 MB into a stream that must equal
@@ -96,7 +116,7 @@ it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package. The line before
 the last is the kernel table as JSON: per kernel its launches on the 16 MB
 compress (dec_chain, dec_symbols, mtf_dec: on the decode of the port's
-stream), its time and
+stream; crc_ranges, block_cuts: on its intake compress), its time and
 its plain version's at the shapes above, the library call's where one
 computes the same function, and its bound: the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s, or its operations over
@@ -108,21 +128,25 @@ from __future__ import annotations
 
 import bz2 as stdlib_bz2
 import contextlib
+import importlib.util
 import io
 import json
 import os
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
+ROOT = Path(__file__).resolve().parent
 LEVEL = 9
 CORPUS_BYTES = 16_000_000
 CHECK_BYTES = 2_000_000
 WRITE_BYTES, CHECKPOINT_CUT = 1_000_000, 9_000_000  # phase 5b: write size, where the compressor drops
 MESH_RANKS, MESH_TIMEOUT_S = 2, 300  # phases 6b and 6d: processes on the one card, their wall-clock limit
 COLD_TIMEOUT_S = 300  # phase 7: each fresh process's wall-clock limit
+ZEROS_BYTES = 24_000_000  # phase 4c: an input whose window widens twice
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -174,11 +198,11 @@ def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None) -> 
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def device_profile(fn, top: int = 12) -> dict:
+def device_profile(fn, top: int | None = 12) -> dict:
     """fn() once under torch.profiler with device activity only: its
     result and wall, the device events the profiler saw (kernels apart
     from copies and sets), the device busy seconds, and the ``top`` op
-    names by device time with their launches."""
+    names by device time with their launches (all of them for None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -218,9 +242,10 @@ def timed(fn):
 
 
 # name -> (source, the TPU kernel it replaces). dec_chain, dec_symbols,
-# mtf_dec and huffman_plan replace no pl.pallas_call: they are the device
-# loops of the Huffman group chain, the group-symbol decode and the
-# inverse MTF's chunk permutations (each a lax.fori_loop) and of the
+# mtf_dec, crc_ranges, block_cuts and huffman_plan replace no
+# pl.pallas_call: they are the device loops of the Huffman group chain,
+# the group-symbol decode, the inverse MTF's chunk permutations, the
+# intake's range CRCs and its block cuts (each a lax.fori_loop) and of the
 # Huffman refinement (lax.while_loop around the code-length tree scan).
 KERNELS = {
     "bwt_sort": ("bz2tpu_torch/csrc/bwt_sort.cu", "bz2tpu/ops/bwt_pallas.py:118"),
@@ -230,8 +255,48 @@ KERNELS = {
     "dec_chain": ("bz2tpu_torch/csrc/dec_chain.cu", "bz2tpu/ops/huffman_dec.py:237"),
     "dec_symbols": ("bz2tpu_torch/csrc/dec_symbols.cu", "bz2tpu/ops/huffman_dec.py:265"),
     "mtf_dec": ("bz2tpu_torch/csrc/mtf_dec.cu", "bz2tpu/ops/mtf_dec.py:110"),
+    "crc_ranges": ("bz2tpu_torch/csrc/crc_ranges.cu", "bz2tpu/ops/crc.py:166"),
+    "block_cuts": ("bz2tpu_torch/csrc/block_cuts.cu", "bz2tpu/ops/rle1.py:162"),
 }
 DECODE_KERNELS = ("dec_chain", "dec_symbols", "mtf_dec")
+INTAKE_KERNELS = ("crc_ranges", "block_cuts")
+
+
+def intake_split(chunk, length: int, level: int, max_blocks: int, reps: int = 5) -> dict | None:
+    """The steps of ops/intake.device_intake on one chunk, lapped inside it
+    by a stage clock (ops/pipeline.StageClock): rle1_encode, block_cuts,
+    rows (the rows gather, ns and raw lengths) and crc32_ranges, the median
+    of ``reps`` runs after a warm-up, in seconds. Reads the bz2tpu_torch
+    already imported, so tools/time_intake.py times another checkout's
+    steps with it; None for a checkout whose device_intake takes no lap."""
+    import inspect
+
+    from bz2tpu_torch.ops.intake import device_intake
+    from bz2tpu_torch.ops.pipeline import StageClock
+
+    if "lap" not in inspect.signature(device_intake).parameters:
+        return None
+
+    def steps() -> dict:
+        t: dict[str, float] = {}
+        clock = StageClock(t, chunk.device)
+        device_intake(chunk, length, level=level, max_blocks=max_blocks, lap=clock.lap)
+        return t
+
+    steps()
+    runs = [steps() for _ in range(reps)]
+    return {k: sorted(r[k] for r in runs)[reps // 2] for k in runs[0]}
+
+
+def host_op_count(fn) -> int:
+    """The top-level aten ops that fn() issues from the host (torch.profiler,
+    CPU activity): what eager torch launches one by one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.cpu_parent is None and e.name.startswith("aten::"))
 
 
 
@@ -400,15 +465,17 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     print(f"  card: {card}")
 
 
-def mesh_run(corpus: bytes, mesh) -> dict:
+def mesh_run(corpus: bytes, mesh, gather: bool = False) -> dict:
     """Phase 6's path on one rank: split the corpus, pad its blocks to a
     batch the mesh divides, encode this rank's rows, and stitch the whole
     stream (ranks meet at a barrier first, so the stitch's time is its
-    own). Returns the stream, this rank's bits and seconds by step."""
+    own). Returns the stream, this rank's bits and seconds by step. With
+    ``gather`` (a mesh of one rank), gather_blocks of the encode must give
+    the rank's own rows back."""
     import numpy as np
     import torch.distributed as dist
 
-    from bz2tpu_torch.parallel import encode_blocks_sharded, pad_batch
+    from bz2tpu_torch.parallel import encode_blocks_sharded, gather_blocks, pad_batch
     from bz2tpu_torch.parallel.stitch import stitch_stream_shard
     from bz2tpu_torch.runtime.compressor import split_blocks
 
@@ -424,6 +491,10 @@ def mesh_run(corpus: bytes, mesh) -> dict:
         ns[i], crcs[i] = blk.data.size, blk.crc
     seconds["split"] = time.perf_counter() - t0
     out, seconds["encode"] = timed(lambda: encode_blocks_sharded(batch, ns, crcs, mesh=mesh))
+    if gather:
+        gathered, seconds["gather"] = timed(lambda: gather_blocks(out, mesh))
+        if gathered.keys() != out.keys() or any(not torch.equal(gathered[k], out[k]) for k in out):
+            raise AssertionError("gather_blocks of a one-rank mesh does not give its rows back")
     rows = mesh.rows(n_rows)
     live = max(0, min(rows.stop - rows.start, len(blocks) - rows.start))
     bits = out["total_bits"].clone()
@@ -483,10 +554,19 @@ def compress_rank(corpus: bytes) -> tuple[dict, bytes]:
     return report, stream
 
 
+# Phase 6's child modes -> (backend, ranks). The gloo groups share the one
+# card (NCCL refuses two ranks on one card); "nccl" is a group of one,
+# initialised from env:// as torchrun would set it.
+MESH_MODES = {"stitch": ("gloo", MESH_RANKS), "compress": ("gloo", MESH_RANKS), "nccl": ("nccl", 1)}
+
+
 def mesh_rank(argv: list[str]) -> int:
-    """Phases 6b and 6d's worker: one rank of a gloo group on the card,
-    which reads the corpus from DIR and writes its stream and a JSON report
-    there. MODE "stitch" (6b) runs mesh_run, "compress" (6d) compress_rank.
+    """Phase 6's worker: one rank of a group on the card, which reads the
+    corpus from DIR and writes its streams and a JSON report (with the
+    group's backend) there. MODE "stitch" (6b) runs mesh_run, "compress"
+    (6d) compress_rank, "nccl" (6e) mesh_run with gather_blocks (under
+    NCCL the small all-gathers of gather_ints hold CUDA tensors) and then
+    bz2tpu_torch.compress with the group up.
 
         python3 chip_smoke.py --mesh-rank R --mesh-port PORT --mesh-dir DIR --mesh-mode MODE
     """
@@ -495,6 +575,7 @@ def mesh_rank(argv: list[str]) -> int:
         return 1
     import torch.distributed as dist
 
+    import bz2tpu_torch
     from bz2tpu_torch import _build
     from bz2tpu_torch.ops import bwt_cuda, huffman_cuda, mtf_cuda
     from bz2tpu_torch.parallel import block_mesh
@@ -502,26 +583,40 @@ def mesh_rank(argv: list[str]) -> int:
 
     args = dict(zip(argv[::2], argv[1::2]))
     rank, tmp, mode = int(args["--mesh-rank"]), args["--mesh-dir"], args["--mesh-mode"]
+    backend, ranks = MESH_MODES[mode]
     t0 = time.perf_counter()
-    initialize(coordinator_address=f"127.0.0.1:{args['--mesh-port']}", num_processes=MESH_RANKS,
-               process_id=rank, backend="gloo", timeout_s=120)
+    if ranks == 1:  # initialize(num_processes=1) returns with no group: take the environment's
+        torch.cuda.set_device(0)
+        initialize(backend=backend, timeout_s=120)
+    else:
+        initialize(coordinator_address=f"127.0.0.1:{args['--mesh-port']}", num_processes=ranks,
+                   process_id=rank, backend=backend, timeout_s=120)
     mesh = block_mesh()
+    if (mesh.rank, mesh.size) != (rank, ranks) or mesh.group is None or (
+            ranks == 1 and mesh.device != torch.device("cuda", 0)):
+        raise AssertionError(f"block_mesh() is {mesh}, not rank {rank} of a group of {ranks}")
     _build.lib()  # phase 1 built it: this loads it
     with open(os.path.join(tmp, "corpus.dat"), "rb") as f:
         corpus = f.read()
     ready_s = time.perf_counter() - t0
-    report = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "ready_s": ready_s}
-    if mode == "stitch":
-        zero(bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES)
-        run = mesh_run(corpus, mesh)
-        stream = run.pop("stream")
-        report.update(launches=encode_launches(), **run)
-    else:
+    report = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "ready_s": ready_s,
+              "backend": dist.get_backend()}
+    if mode == "compress":
         more, stream = compress_rank(corpus)
         report.update(more)
+        streams = {"compress": stream}
+    else:
+        zero(bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES)
+        run = mesh_run(corpus, mesh, gather=mode == "nccl")
+        streams = {"mesh": run.pop("stream")}
+        report.update(launches=encode_launches(), **run)
+        if mode == "nccl":
+            streams["compress"], report["compress_s"] = timed(lambda: bz2tpu_torch.compress(corpus, level=LEVEL))
+    report["streams"] = list(streams)
     report["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
-    with open(os.path.join(tmp, f"stream.{mode}.{rank}"), "wb") as f:
-        f.write(stream)
+    for name, stream in streams.items():
+        with open(os.path.join(tmp, f"stream.{mode}.{name}.{rank}"), "wb") as f:
+            f.write(stream)
     with open(os.path.join(tmp, f"report.{mode}.{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()
@@ -529,24 +624,29 @@ def mesh_rank(argv: list[str]) -> int:
 
 
 def start_ranks(tmp: str, mode: str, out: bytes) -> tuple[list[dict], float]:
-    """MESH_RANKS copies of this script on the one card, a gloo group in
-    ``mode`` (see mesh_rank); each rank's stream must equal ``out``. Returns
-    the ranks' reports and the wall from their start to both exits. A rank
-    that fails, or has not finished within MESH_TIMEOUT_S, fails the run
-    with its stderr's tail."""
+    """The ranks of ``mode`` (MESH_MODES), each a copy of this script on the
+    one card (see mesh_rank), a group of one taking its address from the
+    environment; each rank's streams must equal ``out`` and its backend
+    the mode's. Returns the ranks' reports and the wall from their start to
+    every exit. A rank that fails, or has not finished within
+    MESH_TIMEOUT_S, fails the run with its stderr's tail."""
     import socket
     import subprocess
 
+    backend, ranks = MESH_MODES[mode]
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    if ranks == 1:
+        env.update(WORLD_SIZE="1", RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.cuda.empty_cache()
     logs = [(open(os.path.join(tmp, f"rank{r}.{mode}.out"), "wb"), open(os.path.join(tmp, f"rank{r}.{mode}.err"), "wb"))
-            for r in range(MESH_RANKS)]
+            for r in range(ranks)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
                                "--mesh-port", str(port), "--mesh-dir", tmp, "--mesh-mode", mode],
-                              stdout=o, stderr=e)
+                              stdout=o, stderr=e, env=env)
              for r, (o, e) in enumerate(logs)]
     try:
         for p in procs:
@@ -570,13 +670,29 @@ def start_ranks(tmp: str, mode: str, out: bytes) -> tuple[list[dict], float]:
     if failed:
         raise AssertionError(f"{mode} ranks {failed} failed or did not finish within {MESH_TIMEOUT_S} s")
     reports = []
-    for r in range(MESH_RANKS):
+    for r in range(ranks):
         with open(os.path.join(tmp, f"report.{mode}.{r}.json")) as f:
             reports.append(json.load(f))
-        with open(os.path.join(tmp, f"stream.{mode}.{r}"), "rb") as f:
-            if f.read() != out:
-                raise AssertionError(f"rank {r}'s stream ({mode}) differs from phase 3's compress stream")
+        if reports[-1]["backend"] != backend:
+            raise AssertionError(f"rank {r} ({mode}) ran on {reports[-1]['backend']}, not {backend}")
+        for name in reports[-1]["streams"]:
+            with open(os.path.join(tmp, f"stream.{mode}.{name}.{r}"), "rb") as f:
+                if f.read() != out:
+                    raise AssertionError(f"rank {r}'s {name} stream ({mode}) differs from phase 3's compress stream")
     return reports, wall
+
+
+def nccl_phase(tmp: str, out: bytes, card: str) -> None:
+    """Phase 6e: the mesh's NCCL branch, in a child process so that this
+    one never holds a default group. Phase 6b wrote the corpus to tmp."""
+    (rep,), wall = start_ranks(tmp, "nccl", out)
+    sec = ", ".join(f"{k} {v:.3f} s" for k, v in rep["seconds"].items())
+    print(f"6e one-rank NCCL group (backend {rep['backend']}, from env://) in a child process: the mesh's stream "
+          f"(encode_blocks_sharded, gather_blocks, stitch_stream_shard, whose gather_ints all-gather CUDA "
+          f"tensors under NCCL) and compress's with the group up byte-identical to phase 3's: True")
+    print(f"  launches {rep['launches']}; group and library ready {rep['ready_s']:.3f} s; mesh {sec}; "
+          f"compress {rep['compress_s']:.3f} s; child wall {wall:.3f} s")
+    print(f"  card: {card}")
 
 
 def batch_launches(blocks, block_rounds, lo: int, hi: int) -> dict:
@@ -837,9 +953,10 @@ def main() -> int:
     from bz2tpu_torch import _build
     from bz2tpu_torch.format import constants as C
     from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda
-    from bz2tpu_torch.ops import mtf_dec, mtf_dec_cuda
+    from bz2tpu_torch.ops import crc, crc_cuda, mtf_dec, mtf_dec_cuda, rle1, rle1_cuda
+    from bz2tpu_torch.ops.intake import chunk_capacity
     from bz2tpu_torch.ops.pipeline import encode_batch
-    from bz2tpu_torch.runtime import device_decode
+    from bz2tpu_torch.runtime import compressor, device_decode
     from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH, HAVE_NATIVE, _batch_tensors, split_blocks
     from bz2tpu_torch.utils.corpus import make_mixed_corpus, real_text_split
     from bz2tpu_torch.utils.device import gpu_name_and_power_limit
@@ -976,7 +1093,7 @@ def main() -> int:
           f"per-block sorts {sum(map(sum, rounds))}")
 
     all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES, dec_cuda.LAUNCHES,
-                  mtf_dec_cuda.LAUNCHES)
+                  mtf_dec_cuda.LAUNCHES, crc_cuda.LAUNCHES, rle1_cuda.LAUNCHES)
     encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks", "huffman_plan")
     n_batches = -(-len(blocks) // DEFAULT_BATCH)
     torch.cuda.reset_peak_memory_stats()
@@ -1095,6 +1212,73 @@ def main() -> int:
                                lambda: mtf_dec_cuda.chunk_perms_ref(js), 3, nbytes=4 * js.numel(),
                                ops=int(js.long().sum()) + js.numel())
     del js, captured, bt, words, tbl, n_groups
+    # crc_ranges and block_cuts at the shapes of the intake's first chunk
+    # of the corpus: its window, its pieces' sums and its blocks' ranges.
+    corpus_arr = np.frombuffer(corpus, np.uint8)
+    chunk_n, cap = chunk_capacity(LEVEL, DEFAULT_BATCH), C.block_capacity(LEVEL)
+    take = min(chunk_n, len(corpus))
+    padded = np.zeros(chunk_n, np.uint8)
+    padded[:take] = corpus_arr[:take]
+    chunk = torch.from_numpy(padded).to(dev)
+    enc = rle1.rle1_encode(chunk, take)
+    cut_args = (enc["piece_out_cum"], enc["piece_raw_cum"], enc["n_pieces"])
+    out_cuts, raw_cuts, n_cut = rle1.block_cuts_ref(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH)
+    starts_raw = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), raw_cuts[:-1]])
+    n_entries, n_pieces = enc["piece_out_cum"].shape[0], int(enc["n_pieces"])
+    live = int(n_cut)
+    print(f"intake kernel shapes: chunk {chunk_n} B ({take} of the corpus), {n_pieces} pieces of "
+          f"{n_entries} entries, {live} blocks, raw cuts {raw_cuts.tolist()}")
+    # block_cuts' bytes: what the function needs, a binary search of
+    # ceil(log2 n_pieces) + 1 entries and the two sums at the cut for each
+    # live block, n_pieces read, the cuts and n_blocks written; a compare
+    # an entry searched. What bounds it is latency: each cut's search
+    # starts from the sum the one before found, so it is at least one
+    # dependent load a live cut, each at L2's latency (tools/load_latency.py).
+    probes = (n_pieces - 1).bit_length() + 1
+    stats["block_cuts"] = compare(
+        "block_cuts", lambda: rle1_cuda.block_cuts(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH),
+        lambda: rle1.block_cuts_ref(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH), 20,
+        nbytes=live * (4 * probes + 8) + 4 + 4 * (2 * DEFAULT_BATCH + 1), ops=live * probes)
+    spec = importlib.util.spec_from_file_location("load_latency", ROOT / "tools" / "load_latency.py")
+    load_latency = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(load_latency)
+    l2_ns = load_latency.dependent_load_ns(load_latency.WARM_BYTES, warm=True)
+    kernel_loads = live * (-(-(n_entries - 1).bit_length() // 5) or 1)  # its 32-ary steps: ceil(log32 N) a cut
+    print(f"block_cuts latency bound: {live} dependent loads (one a live cut) x {l2_ns:.1f} ns (L2, a pointer "
+          f"chase) = {live * l2_ns * 1e-6:.6f} ms; the kernel makes {kernel_loads} ({live} x ceil(log32 "
+          f"{n_entries})), {stats['block_cuts']['ms'] * 1e6 / kernel_loads:.1f} ns each with the launch")
+    # crc_ranges' bytes: the bytes its ranges cover, read once, the ranges
+    # read and the CRCs written; its operations some 5 a byte.
+    covered = int(raw_cuts.max())
+    stats["crc_ranges"] = compare(
+        "crc_ranges", lambda: crc_cuda.crc_ranges(chunk, starts_raw, raw_cuts),
+        lambda: crc.crc32_ranges_ref(chunk, starts_raw, raw_cuts), 10,
+        nbytes=covered + 16 * DEFAULT_BATCH, ops=5 * covered)
+    # The blocks before the chunk's last are the host splitter's too.
+    want_crcs = [b.crc for b in blocks[: live - 1]]
+    if crc_cuda.crc_ranges(chunk, starts_raw, raw_cuts)[: live - 1].tolist() != want_crcs:
+        raise AssertionError("crc_ranges disagrees with the host splitter's block CRCs on the first chunk")
+    _, split_s = timed(lambda: split_blocks(corpus_arr[:take], LEVEL))
+    print(f"  yardstick, not a library call: the host C splitter (RLE1, cuts and block CRCs in C) over the same "
+          f"{take} B: {split_s * 1e3:.4f} ms")
+    # 16 ranges on the chunk, four of them empty, overlapping and unordered.
+    rng = np.random.default_rng(12)
+    a, b = rng.integers(0, chunk_n + 1, 16), rng.integers(0, chunk_n + 1, 16)
+    s16, e16 = np.minimum(a, b), np.maximum(a, b)
+    s16[:4] = e16[:4] = [0, chunk_n, chunk_n // 2, 12345]
+    s16_t, e16_t = torch.from_numpy(s16).to(dev), torch.from_numpy(e16).to(dev)
+    compare("crc_ranges_b16", lambda: crc_cuda.crc_ranges(chunk, s16_t, e16_t),
+            lambda: crc.crc32_ranges_ref(chunk, s16_t, e16_t), 10, nbytes=chunk_n + 24 * 16, ops=5 * chunk_n)
+    # A widened window, 32 MiB (the corpus, then zeros), cut into 8
+    # ranges that cover it.
+    wide = torch.zeros(4 * chunk_n, dtype=torch.uint8, device=dev)
+    wide[: len(corpus)] = torch.frombuffer(bytearray(corpus), dtype=torch.uint8).to(dev)
+    wcuts = torch.arange(1, DEFAULT_BATCH + 1, device=dev) * wide.shape[0] // DEFAULT_BATCH
+    wstarts = wcuts - wide.shape[0] // DEFAULT_BATCH
+    compare("crc_ranges_32MiB", lambda: crc_cuda.crc_ranges(wide, wstarts, wcuts),
+            lambda: crc.crc32_ranges_ref(wide, wstarts, wcuts), 10, nbytes=wide.shape[0] + 16 * DEFAULT_BATCH,
+            ops=5 * wide.shape[0])
+    del chunk, enc, cut_args, wide
     # Every batch of both 16 MB streams: the share of the steps that read
     # the map directly (their window missed), and the kernel's time on the
     # batch where that share is largest.
@@ -1171,28 +1355,94 @@ def main() -> int:
     print("  top device ops: " + "; ".join(f"{t['name']} {t['s'] * 1e3:.3f} ms over {t['launches']}"
                                          for t in trace["top"]))
 
-    # (c) compress with the intake on the card.
-    t0 = time.perf_counter()
-    intake_head = bz2tpu_torch.compress_device_intake(head, level=LEVEL)  # also the warm-up
-    print(f"warm-up compress_device_intake of {len(head)} B: {time.perf_counter() - t0:.3f} s")
-    if intake_head != bz2tpu_torch.compress_device_intake(head, level=LEVEL, device="cpu"):
-        raise AssertionError("compress_device_intake on the card differs from the CPU path on 2 MB")
-    print("compress_device_intake: first 2 MB byte-identical to the CPU path: True")
-    torch.cuda.reset_peak_memory_stats()
-    zero(*all_counts)
-    intake_out, intake_s = timed(lambda: bz2tpu_torch.compress_device_intake(corpus, level=LEVEL))
-    intake_launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
-    print(f"intake-path kernel launches: {intake_launches}")
-    for name in encode_kernels:
-        if intake_launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the device-intake path")
-    if stdlib_bz2.decompress(intake_out) != corpus:
-        raise AssertionError("stdlib bz2 does not decode the device-intake stream to the input")
-    print(f"  compress_device_intake {mb / intake_s:.3f} MB/s ({intake_s:.3f} s) ratio "
-          f"{len(intake_out) / len(corpus):.6f}; stdlib {mb / stock_s:.3f} MB/s (phase 3)")
-    print(f"  peak device memory of the intake compress: {torch.cuda.max_memory_allocated()} B")
+    # (c) compress with the intake on the card. Each device_intake call
+    # (one chunk window tried) is recorded on the way.
+    windows: list[tuple[int, int]] = []
+    real_intake = compressor.device_intake
+    compressor.device_intake = lambda chunk, length, **kw: (
+        windows.append((chunk.shape[0], length)) or real_intake(chunk, length, **kw))
+
+    def intake_launches() -> dict:
+        got = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES, **crc_cuda.LAUNCHES,
+               **rle1_cuda.LAUNCHES}
+        for name in encode_kernels:
+            if got[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the device-intake path")
+        if not got["crc_ranges"] == got["block_cuts"] == len(windows):
+            raise AssertionError(f"crc_ranges/block_cuts launched {got['crc_ranges']}/{got['block_cuts']} times, "
+                                 f"not once per device_intake call ({len(windows)})")
+        return got
+
+    try:
+        t0 = time.perf_counter()
+        intake_head = bz2tpu_torch.compress_device_intake(head, level=LEVEL)  # also the warm-up
+        print(f"warm-up compress_device_intake of {len(head)} B: {time.perf_counter() - t0:.3f} s")
+        if intake_head != bz2tpu_torch.compress_device_intake(head, level=LEVEL, device="cpu"):
+            raise AssertionError("compress_device_intake on the card differs from the CPU path on 2 MB")
+        print("compress_device_intake: first 2 MB byte-identical to the CPU path: True")
+        torch.cuda.reset_peak_memory_stats()
+        zero(*all_counts)
+        windows.clear()
+        intake_out, intake_s = timed(lambda: bz2tpu_torch.compress_device_intake(corpus, level=LEVEL))
+        intake_peak = torch.cuda.max_memory_allocated()
+        intake_counts = intake_launches()
+        print(f"intake-path kernel launches: {intake_counts}; device_intake calls (window, bytes): {windows}")
+        if stdlib_bz2.decompress(intake_out) != corpus:
+            raise AssertionError("stdlib bz2 does not decode the device-intake stream to the input")
+        print(f"  compress_device_intake {mb / intake_s:.3f} MB/s ({intake_s:.3f} s) ratio "
+              f"{len(intake_out) / len(corpus):.6f}; compress (phase 3) {mb / port_s:.3f} MB/s ({port_s:.3f} s); "
+              f"stdlib {mb / stock_s:.3f} MB/s (phase 3)")
+        print(f"  peak device memory of the intake compress: {intake_peak} B")
+        # The steps of the first chunk's intake, its host ops and device
+        # events, and one trace of a warm intake compress.
+        chunk = torch.from_numpy(padded).to(dev)  # phase 4a's: the first chunk
+        split = intake_split(chunk, take, LEVEL, DEFAULT_BATCH)
+        one = lambda: real_intake(chunk, take, level=LEVEL, max_blocks=DEFAULT_BATCH)  # noqa: E731
+        ops = host_op_count(one)
+        chunk_trace = device_profile(one)
+        print(f"  first chunk's intake ({take} B), steps (lapped inside device_intake, median of 5): "
+              + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in split.items())
+              + f"; {ops} host-issued aten ops, {chunk_trace['device_events']} device events "
+              f"({chunk_trace['kernel_events']} kernels)")
+        windows.clear()
+        trace = device_profile(lambda: bz2tpu_torch.compress_device_intake(corpus, level=LEVEL), top=None)
+        if trace["result"] != intake_out:
+            raise AssertionError("the traced intake compress differs from the unclocked one")
+        print(f"  traced intake compress (torch.profiler, device activity): wall {trace['wall_s']:.4f} s profiled, "
+              f"{intake_s:.4f} s unprofiled; {trace['device_events']} device events ({trace['kernel_events']} "
+              f"kernels); device busy {trace['busy_s']:.4f} s: {trace['busy_s'] / trace['wall_s']:.4f} of the "
+              f"profiled wall, {trace['busy_s'] / intake_s:.4f} of the unprofiled one")
+        print("  top device ops: " + "; ".join(f"{t['name']} {t['s'] * 1e3:.3f} ms over {t['launches']}"
+                                             for t in trace["top"][:12]))
+        # The intake kernels' own device time (their wrappers' "ms" above
+        # holds the host's issue of each call too).
+        print("  intake kernels on the device: " + "; ".join(
+            f"{t['name']} {t['s'] * 1e3:.4f} ms over {t['launches']}" for t in trace["top"]
+            if any(k in t["name"] for k in ("crc_spans", "crc_finish", "block_cuts"))))
+        del chunk
+        # An escalating input: zeros RLE1 each window into one under-full
+        # block, so the window widens from 8 to 16 to 32 MiB.
+        zeros = bytes(ZEROS_BYTES)
+        zero(*all_counts)
+        windows.clear()
+        zeros_out, zeros_s = timed(lambda: bz2tpu_torch.compress_device_intake(zeros, level=LEVEL))
+        zeros_counts, zeros_windows = intake_launches(), list(windows)
+        if [w for w, _ in zeros_windows] != [chunk_n, 2 * chunk_n, 4 * chunk_n]:
+            raise AssertionError(f"the zeros' windows were {zeros_windows}, not 8, 16 and 32 MiB")
+        if stdlib_bz2.decompress(zeros_out) != zeros:
+            raise AssertionError("stdlib bz2 does not decode the escalating input's stream")
+        zeros_cpu, zeros_cpu_s = timed(lambda: bz2tpu_torch.compress_device_intake(zeros, level=LEVEL, device="cpu"))
+        if zeros_cpu != zeros_out:
+            raise AssertionError("compress_device_intake of the escalating input differs from the CPU path's")
+        print(f"  escalating input, {len(zeros)} zero bytes: windows (window, bytes) {zeros_windows}, launches "
+              f"{ {k: zeros_counts[k] for k in INTAKE_KERNELS} }; byte-identical to the CPU path "
+              f"({zeros_cpu_s:.3f} s) and decoded by stdlib bz2: True; {len(zeros) / 1e6 / zeros_s:.3f} MB/s "
+              f"({zeros_s:.3f} s)")
+    finally:
+        compressor.device_intake = real_intake
     print(f"  card: {card}")
     launches.update(dec_launches)
+    launches.update({k: intake_counts[k] for k in INTAKE_KERNELS})
 
     # -- 5. files and streams on the card -------------------------------------
     block_rounds = [r for batch_rounds in rounds for r in batch_rounds]
@@ -1206,6 +1456,7 @@ def main() -> int:
                   "batch": DEFAULT_BATCH}
         block_mesh_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase6, card)
         per_block_phase(tmp, corpus, out, blocks, block_rounds, all_counts, phase6, card)
+        nccl_phase(tmp, out, card)
 
     # -- 7. cold start: fresh processes, empty build caches ----------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,6 +1,8 @@
 """bz2tpu_torch's CUDA kernels on the card: each kernel against its plain
 torch version (exact), the stages and the whole stream on the card against
-the CPU path, for compress (levels 1 and 5), compress_device_intake,
+the CPU path, for compress (levels 1 and 5), compress_device_intake (with
+its crc_ranges and block_cuts kernels at edge shapes and at an 8 MiB
+chunk, once each per intake call of an escalating input),
 decompress_device (with its dec_symbols and mtf_dec kernels at the
 decode's own shapes, on a good and a corrupt stream), the stream and file layer (compress_file, a
 checkpoint resumed, BZ2File), the per-block encode of the block mesh
@@ -23,9 +25,11 @@ import torch
 
 import bz2tpu_torch
 from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda, mtf_dec
-from bz2tpu_torch.ops import mtf_dec_cuda
+from bz2tpu_torch.ops import crc, crc_cuda, intake, mtf_dec_cuda, rle1, rle1_cuda
 from bz2tpu_torch.ops.bwt import bwt_stage
-from bz2tpu_torch.runtime import device_decode
+from bz2tpu_torch.format import constants as C
+from bz2tpu_torch.format.crc32 import crc32_serial
+from bz2tpu_torch.runtime import compressor, device_decode
 from bz2tpu_torch.runtime.compressor import _batch_tensors, split_blocks
 from bz2tpu_torch.utils.corpus import make_mixed_corpus
 
@@ -495,6 +499,84 @@ def test_compress_device_intake_on_card_matches_cpu(cuda):
     data = b"".join(_corpus(kind, 150_000, 31 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
     data = bytes(300_000) + data  # escalates the window first
     out = bz2tpu_torch.compress_device_intake(data, level=1, parallel=2)
+    assert out == bz2tpu_torch.compress_device_intake(data, level=1, parallel=2, device="cpu")
+    assert stdlib_bz2.decompress(out) == data
+
+
+@pytest.mark.parametrize("n", [1, 4097, 3 * 4096 + 1, 1 << 23])
+@pytest.mark.parametrize("b", [1, 16])
+def test_crc_ranges_kernel_matches_plain(cuda, n, b):
+    # Empty ranges, ranges that end at N, single bytes, overlapping and
+    # unordered ranges; the 8 MiB chunk is the level-9 intake's.
+    rng = np.random.default_rng(1200 + n + b)
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    a, c = rng.integers(0, n + 1, b), rng.integers(0, n + 1, b)
+    starts, ends = np.minimum(a, c), np.maximum(a, c)
+    for i, (s, e) in enumerate([(0, n), (n, n), (n // 2, n // 2 + 1), (n - 1, n), (n // 3, n // 3)][:b]):
+        starts[i], ends[i] = s, e
+    chunk = torch.from_numpy(data).to(cuda)
+    s_t, e_t = torch.from_numpy(starts.astype(np.int32)).to(cuda), torch.from_numpy(ends.astype(np.int32)).to(cuda)
+    got = crc_cuda.crc_ranges(chunk, s_t, e_t)
+    _equal(got, crc.crc32_ranges_ref(chunk, s_t, e_t))
+    _equal(crc.crc32_ranges(chunk, s_t.long(), e_t.long()), got)
+    if n < 1 << 20:
+        assert got.tolist() == [crc32_serial(data[s:e]) for s, e in zip(starts, ends)]
+
+
+def test_crc_ranges_kernel_off_16_byte_alignment_and_over_many_ctas(cuda):
+    # A chunk that starts one byte past an aligned address (the scalar
+    # path) and one of 32 MiB + 4 KiB (2,049 CTAs: pass 2 folds runs; the
+    # plain version then takes 4,096 lanes).
+    rng = np.random.default_rng(1300)
+    base = torch.from_numpy(rng.integers(0, 256, (1 << 16) + 1, dtype=np.uint8)).to(cuda)
+    for chunk in (base[1:], torch.from_numpy(rng.integers(0, 256, (1 << 25) + 4096, dtype=np.uint8)).to(cuda)):
+        n = chunk.shape[0]
+        pts = np.sort(rng.integers(0, n + 1, 16))
+        s_t = torch.from_numpy(np.concatenate([pts[:8], [n, 0, pts[3]]])).to(cuda)
+        e_t = torch.from_numpy(np.concatenate([pts[8:], [n, n, pts[3]]])).to(cuda)
+        _equal(crc_cuda.crc_ranges(chunk, s_t, e_t), crc.crc32_ranges_ref(chunk, s_t, e_t))
+
+
+@pytest.mark.parametrize("kind", ["text", "runs", "random", "zeros", "empty"])
+@pytest.mark.parametrize("level,max_blocks", [(1, 8), (9, 1), (9, 8)])
+def test_block_cuts_kernel_matches_plain(cuda, kind, level, max_blocks):
+    n = 0 if kind == "empty" else 3_000_000
+    N = 1 << 22
+    data = np.zeros(N, np.uint8)
+    if kind not in ("zeros", "empty"):
+        data[:n] = _corpus(kind, n, 1400)
+    enc = rle1.rle1_encode(torch.from_numpy(data).to(cuda), n)
+    args = (enc["piece_out_cum"], enc["piece_raw_cum"], enc["n_pieces"])
+    cap = C.block_capacity(level)
+    got = rle1_cuda.block_cuts(*args, cap=cap, max_blocks=max_blocks)
+    want = rle1.block_cuts_ref(*args, cap=cap, max_blocks=max_blocks)
+    for g, w in zip(got, want):
+        _equal(g, w)
+    # Exact-capacity cuts and overshoots on synthetic sums.
+    poc = torch.full((1 << 10,), 2**31 - 1, dtype=torch.int32)
+    poc[:400] = torch.arange(5, 2001, 5, dtype=torch.int32)
+    for cap in (1, 5, 12, 100, 2000, 5000):
+        for np_ in (0, 1, 400):
+            sums = (poc.to(cuda), poc.to(cuda), torch.tensor(np_, dtype=torch.int32, device=cuda))
+            for g, w in zip(rle1_cuda.block_cuts(*sums, cap=cap, max_blocks=8),
+                            rle1.block_cuts_ref(*sums, cap=cap, max_blocks=8)):
+                _equal(g, w)
+
+
+def test_compress_device_intake_on_card_launches_d5_d6_once_per_window(cuda, monkeypatch):
+    # Zeros widen the window twice (every chunk RLE1s into one under-full
+    # block), then random bytes fill a batch and it drops back.
+    rng = np.random.default_rng(1500)
+    data = bytes(1_500_000) + rng.integers(0, 256, 700_000, dtype=np.uint8).tobytes()
+    windows = []
+    real = compressor.device_intake
+    monkeypatch.setattr(compressor, "device_intake",
+                        lambda chunk, length, **kw: windows.append(chunk.shape[0]) or real(chunk, length, **kw))
+    crc_cuda.LAUNCHES["crc_ranges"] = rle1_cuda.LAUNCHES["block_cuts"] = 0
+    out = bz2tpu_torch.compress_device_intake(data, level=1, parallel=2)
+    assert crc_cuda.LAUNCHES["crc_ranges"] == rle1_cuda.LAUNCHES["block_cuts"] == len(windows)
+    base = intake.chunk_capacity(1, 2)
+    assert windows[:4] == [base, 2 * base, 4 * base, 8 * base], windows
     assert out == bz2tpu_torch.compress_device_intake(data, level=1, parallel=2, device="cpu")
     assert stdlib_bz2.decompress(out) == data
 
