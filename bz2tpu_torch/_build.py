@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> (argtypes); every entry point returns a cudaError_t as int, the
 # *_scratch and *_work helpers return a buffer size in 32-bit words, the
-# *_smem helper one in bytes.
+# *_smem helper one in bytes, *_entries a count of entries.
 SIGNATURES = {
     "bz2t_radix_sort_scratch": (_I,),
     "bz2t_radix_sort_u64": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -50,7 +50,9 @@ SIGNATURES = {
     "bz2t_dec_chain_smem": (_I,),
     "bz2t_dec_chain": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "bz2t_huffman_plan": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    "bz2t_dec_symbols": (_P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "bz2t_lut_first_entries": (),
+    "bz2t_lut_first_level": (_P, _I, _P, _P),
+    "bz2t_dec_symbols": (_P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "bz2t_mtf_dec": (_P, _L, _P, _P, _P),
     "bz2t_crc_ranges_work": (_L, _I),
     "bz2t_crc_ranges": (_P, _L, _P, _I, _P, _P, _P),

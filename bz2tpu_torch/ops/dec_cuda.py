@@ -15,7 +15,10 @@ some groups ahead, where each table's recent group widths put the group
 
 dec_symbols, step 4: every group's 50 symbols decoded at its known start
 (the 50-step lax.fori_loop at bz2tpu/ops/huffman_dec.py:247-267, some 30
-torch launches a step in eager torch), one thread a group.
+torch launches a step in eager torch), one thread a group, the code lengths
+from first-level tables in shared memory (``first_level_tables``: each
+bucket of 2^(20 - FIRST_BITS) LUT entries reduced to its length, or 0 where
+they differ) and the stream from a register bit buffer.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -32,6 +35,7 @@ from bz2tpu_torch.format import constants as C
 LAUNCHES = {"dec_chain": 0, "dec_symbols": 0}
 KMAX = C.HUFFMAN_DECODE_MAX_ACCEPTED_LENGTH  # 20: longer codes are invalid
 LUT_BITS = 20  # the code length is a function of the top 20 window bits
+FIRST_BITS = 10  # first-level index bits of dec_symbols (csrc/dec_symbols.cu)
 _MASK23 = (1 << 23) - 1
 SMEM_LIMIT = 232_448  # bytes of shared memory a CTA can have on the H100
 
@@ -100,6 +104,45 @@ def window23(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
     return (w32 >> (9 - (bitpos & 7))) & _MASK23
 
 
+def first_level_tables_ref(lut: torch.Tensor, bits: int = FIRST_BITS) -> torch.Tensor:
+    """Plain version: each LUT row's 2^bits buckets of 2^(20 - bits)
+    consecutive entries, each reduced to the length a decode step takes
+    from its entries (above 20: 21, no code; below 1: 1) where they all
+    agree on it, and to 0 where they do not."""
+    x = lut.view(lut.shape[0], 1 << bits, -1).to(torch.int16)
+    step = torch.where(x > KMAX, KMAX + 1, x.clamp(min=1))
+    lo, hi = step.amin(2), step.amax(2)
+    return torch.where(lo == hi, lo, 0).to(torch.uint8)
+
+
+def _check_lut(lut: torch.Tensor, dev: torch.device) -> None:
+    if lut.dtype != torch.int8 or lut.dim() != 2 or lut.shape[1] != 1 << LUT_BITS or lut.shape[0] == 0 \
+            or not lut.is_contiguous() or lut.device != dev:
+        raise ValueError(f"lut must be a contiguous (U, 2^{LUT_BITS}) int8 tensor on {dev}")
+
+
+def first_level_tables(lut: torch.Tensor) -> torch.Tensor:
+    """(U, 2^20) int8 code-length LUTs -> (U, 2^FIRST_BITS) uint8
+    first-level tables, as first_level_tables_ref: the first pass of
+    dec_symbols on the card (decode_groups runs it itself)."""
+    _check_lut(lut, lut.device)
+    if lut.device.type == "cpu":
+        return first_level_tables_ref(lut)
+    if lut.device.type != "cuda":
+        raise ValueError(f"unsupported device {lut.device}")
+    return _first_level_kernel(_build.lib(), lut)
+
+
+def _first_level_kernel(lib, lut: torch.Tensor) -> torch.Tensor:
+    if lut.data_ptr() % 16:
+        raise ValueError("lut must start on a 16-byte boundary (the first pass reads 16 bytes at once)")
+    first = torch.empty(lut.shape[0], lib.bz2t_lut_first_entries(), dtype=torch.uint8, device=lut.device)
+    stream = torch.cuda.current_stream(lut.device).cuda_stream
+    _build.check(lib.bz2t_lut_first_level(lut.data_ptr(), lut.shape[0], first.data_ptr(), stream),
+                 "lut_first_level")
+    return first
+
+
 def decode_groups_ref(words, offs, tbl, lut, lut_idx, base, perm) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: the 50-step loop over all groups of the batch at once."""
     B, G = tbl.shape
@@ -130,8 +173,9 @@ def decode_groups(words, offs, tbl, lut, lut_idx, base, perm) -> tuple[torch.Ten
     """The 50 symbols of every Huffman group of a batch, each group decoded
     from its known start bit.
 
-    words: (NB,) int64 window words of the stream (huffman_dec.window_words,
-    as runtime/device_decode.stream_words pads it); offs: (B, G) int64
+    words: (NB,) int64 window words of a byte stream (huffman_dec.window_words,
+    as runtime/device_decode.stream_words pads it: the kernel reads the
+    stream's bytes from them four at a time); offs: (B, G) int64
     absolute start bit of each group; tbl: (B, G) int32 table per group, in
     [0, T); lut: (U, 2^20) int8 code-length LUTs; lut_idx: (B, T) int32 LUT
     row per table, in [0, U); base: (B, T, 21) and perm: (B, T, 258) int32
@@ -147,9 +191,7 @@ def decode_groups(words, offs, tbl, lut, lut_idx, base, perm) -> tuple[torch.Ten
     B, G = offs.shape
     if tbl.dtype != torch.int32 or tbl.shape != (B, G) or not tbl.is_contiguous() or tbl.device != dev:
         raise ValueError(f"tbl must be a contiguous ({B}, {G}) int32 tensor on {dev}")
-    if lut.dtype != torch.int8 or lut.dim() != 2 or lut.shape[1] != 1 << LUT_BITS or lut.shape[0] == 0 \
-            or not lut.is_contiguous() or lut.device != dev:
-        raise ValueError(f"lut must be a contiguous (U, 2^{LUT_BITS}) int8 tensor on {dev}")
+    _check_lut(lut, dev)
     if base.dtype != torch.int32 or base.dim() != 3 or base.shape[0] != B or base.shape[2] != KMAX + 1 \
             or not base.is_contiguous() or base.device != dev:
         raise ValueError(f"base must be a contiguous ({B}, T, {KMAX + 1}) int32 tensor on {dev}")
@@ -168,13 +210,15 @@ def decode_groups(words, offs, tbl, lut, lut_idx, base, perm) -> tuple[torch.Ten
     if B > 65_535:
         raise ValueError(f"{B} blocks exceed the kernel's grid")
     lib = _build.lib()
+    first = _first_level_kernel(lib, lut)
     n = G * C.HUFFMAN_GROUP_SIZE
     syms = torch.empty(B, n, dtype=torch.int32, device=dev)
     lens = torch.empty(B, n, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.bz2t_dec_symbols(
         words.data_ptr(), words.numel(), offs.data_ptr(), tbl.data_ptr(), lut.data_ptr(), lut.shape[0],
-        lut_idx.data_ptr(), base.data_ptr(), perm.data_ptr(), B, T, G, syms.data_ptr(), lens.data_ptr(), stream,
+        first.data_ptr(), lut_idx.data_ptr(), base.data_ptr(), perm.data_ptr(), B, T, G, syms.data_ptr(),
+        lens.data_ptr(), stream,
     )
     _build.check(err, "dec_symbols")
     LAUNCHES["dec_symbols"] += 1

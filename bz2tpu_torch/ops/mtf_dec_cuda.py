@@ -7,8 +7,10 @@ literals, step by step from the identity, then across chunks by a scan of
 the chunk permutations. The JAX form runs the first level as a device
 lax.fori_loop of 128 steps (bz2tpu/ops/mtf_dec.py:100-112); in eager torch
 each step is some 8 launches over the whole (B, m / 128, 256) uint8 state,
-so the port runs all of it in one kernel, one warp a chunk with the list
-in its registers. It is a port-only kernel: it replaces a fori_loop, not a
+so the port runs all of it in one kernel: a warp takes two chunks, each
+lane 16 entries of a list in four 32-bit registers, and stops after the
+last nonzero index of both (a zero index moves nothing and emits the
+list's front). It is a port-only kernel: it replaces a fori_loop, not a
 pl.pallas_call.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
@@ -22,6 +24,7 @@ import torch
 from bz2tpu_torch import _build
 
 CHUNK = 128  # literals per permutation chunk, as bz2tpu.ops.mtf_dec._CHUNK
+WARP_CHUNKS = 2  # chunks a warp of csrc/mtf_dec.cu walks together
 
 # Kernel launches by wrapper (reset to 0 to count one run).
 LAUNCHES = {"mtf_dec": 0}

@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels against their plain loops (exact): dec_chain at the shapes of
      the stream's batch with the most Huffman groups, with its ns per
      group of the longest chain; dec_symbols and mtf_dec on the inputs a
-     decode of the batch with the most symbols hands them; and on every
+     decode of the batch with the most symbols hands them (dec_symbols'
+     first-level tables against their plain version and the symbols whose
+     window reads a 1 MiB LUT row; mtf_dec's steps that are trailing
+     padding and those the kernel skips; for both, the kernels' device time
+     by torch.profiler and their time as a multiple of the bound); and on every
      batch of the port's and stdlib's 16 MB streams dec_chain's share of
      steps whose window missed (tools/time_dec_chain.py times the kernel
      of two checkouts on those batches); the intake kernels against their
@@ -117,7 +121,8 @@ The script imports nothing of JAX or of the JAX package. The line before
 the last is the kernel table as JSON: per kernel its launches on the 16 MB
 compress (dec_chain, dec_symbols, mtf_dec: on the decode of the port's
 stream; crc_ranges, block_cuts: on its intake compress), its time and
-its plain version's at the shapes above, the library call's where one
+its plain version's at the shapes above (dec_symbols and mtf_dec also
+their device time, device_ms), the library call's where one
 computes the same function, and its bound: the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s, or its operations over
 67 T/s where those take longer. The last line is {"ok": true, "device":
@@ -163,6 +168,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device time per fn() over reps runs after one
+    warm-up: every kernel's time by torch.profiler, without the gaps the
+    host leaves between launches (which cuda_ms counts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / 1e3 / reps
+
+
 def max_abs_err(got, want) -> int:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -178,10 +202,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores (float32 rate)
 
 
-def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None) -> dict:
+def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None, device: bool = False) -> dict:
     """Kernel call fn() against its plain version ref() on the same inputs:
     exact agreement, then both timed, with the library call where there is
-    one, and the kernel's bound from the bytes and operations given."""
+    one, and the kernel's bound from the bytes and operations given; with
+    ``device``, also the kernels' device time alone (device_ms)."""
     got, want = fn(), ref()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -194,8 +219,13 @@ def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None) -> 
     lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
     print(f"kernel {name}: max_abs_err={err} (tolerance 0)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
           f"{lib}  bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {ops} ops)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    if device:
+        row["device_ms"] = device_ms(fn, 10 * reps)
+        print(f"kernel {name}: device {row['device_ms']:.4f} ms a call ({10 * reps} calls, torch.profiler); "
+              f"{ms / bound_ms:.2f} x its bound by events, {row['device_ms'] / bound_ms:.2f} x by device time")
+    return row
 
 
 def device_profile(fn, top: int | None = 12) -> dict:
@@ -260,6 +290,38 @@ KERNELS = {
 }
 DECODE_KERNELS = ("dec_chain", "dec_symbols", "mtf_dec")
 INTAKE_KERNELS = ("crc_ranges", "block_cuts")
+
+
+def decode_kernel_inputs(stream: bytes, dev) -> dict:
+    """The arguments a decode of the stream's batch with the most symbols
+    hands dec_symbols ("dec_symbols") and mtf_dec ("mtf_dec"), captured by
+    wrapping huffman_dec.decode_groups and mtf_dec.chunk_perms."""
+    from bz2tpu_torch.format import constants as C
+    from bz2tpu_torch.ops import huffman_dec, mtf_dec
+    from bz2tpu_torch.runtime import device_decode
+
+    parsed, _ = device_decode.parse_blocks(stream)
+    nbc, group = max(device_decode.batches(parsed),
+                     key=lambda b: len(b[1]) * max(parsed[i]["selectors"].size for i in b[1]))
+    captured = {}
+    real_groups, real_perms = huffman_dec.decode_groups, mtf_dec.chunk_perms
+
+    def capture(name, real):
+        def wrapped(*args):
+            captured[name] = args
+            return real(*args)
+        return wrapped
+
+    huffman_dec.decode_groups = capture("dec_symbols", real_groups)
+    mtf_dec.chunk_perms = capture("mtf_dec", real_perms)
+    try:
+        out_cap = device_decode._pow2_at_least((stream[3] - ord("0")) * C.BLOCK_SIZE_BASE)
+        words = device_decode.stream_words(stream, dev)
+        if device_decode._decode_batch(words, [parsed[i] for i in group], nbc, out_cap, dev, None) is None:
+            raise AssertionError("the largest batch of the stream fails its decode")
+    finally:
+        huffman_dec.decode_groups, mtf_dec.chunk_perms = real_groups, real_perms
+    return captured
 
 
 def intake_split(chunk, length: int, level: int, max_blocks: int, reps: int = 5) -> dict | None:
@@ -953,7 +1015,7 @@ def main() -> int:
     from bz2tpu_torch import _build
     from bz2tpu_torch.format import constants as C
     from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda
-    from bz2tpu_torch.ops import crc, crc_cuda, mtf_dec, mtf_dec_cuda, rle1, rle1_cuda
+    from bz2tpu_torch.ops import crc, crc_cuda, mtf_dec_cuda, rle1, rle1_cuda
     from bz2tpu_torch.ops.intake import chunk_capacity
     from bz2tpu_torch.ops.pipeline import encode_batch
     from bz2tpu_torch.runtime import compressor, device_decode
@@ -1163,28 +1225,10 @@ def main() -> int:
           f"({longest} groups), direct reads {misses.tolist()}")
     del jump50
     # dec_symbols and mtf_dec on the inputs a decode of the stream's batch
-    # with the most symbols hands them (captured on the way).
-    nbc3, group3 = max(device_decode.batches(parsed),
-                       key=lambda b: len(b[1]) * max(parsed[i]["selectors"].size for i in b[1]))
-    captured = {}
-    real_groups, real_perms = huffman_dec.decode_groups, mtf_dec.chunk_perms
-
-    def capture(name, real):
-        def wrapped(*args):
-            captured[name] = args
-            return real(*args)
-        return wrapped
-
-    huffman_dec.decode_groups = capture("dec_symbols", real_groups)
-    mtf_dec.chunk_perms = capture("mtf_dec", real_perms)
-    try:
-        out_cap = device_decode._pow2_at_least((out[3] - ord("0")) * C.BLOCK_SIZE_BASE)
-        if device_decode._decode_batch(words, [parsed[i] for i in group3], nbc3, out_cap, dev, None) is None:
-            raise AssertionError("the largest batch of the port's stream fails its decode")
-    finally:
-        huffman_dec.decode_groups, mtf_dec.chunk_perms = real_groups, real_perms
+    # with the most symbols hands them.
+    captured = decode_kernel_inputs(out, dev)
     args3 = captured["dec_symbols"]
-    words3, offs, tbl3, _, lut_idx, base, perm = args3
+    words3, offs, tbl3, lut3, lut_idx, base, perm = args3
     syms_w, lens_w = dec_cuda.decode_groups_ref(*args3)
     # dec_symbols' bytes: the group starts and tables read, the window
     # words and LUT entries its symbols reach (each once), the symbols and
@@ -1192,26 +1236,49 @@ def main() -> int:
     n3 = syms_w.numel()
     lens3 = lens_w.view(*offs.shape, -1).long()
     pos = offs[:, :, None] + lens3.cumsum(2) - lens3
-    lut_at = (lut_idx.long().gather(1, tbl3.long())[:, :, None] << dec_cuda.LUT_BITS) + (dec_cuda.window23(words3, pos) >> 3)
+    v23 = dec_cuda.window23(words3, pos)
+    rows3 = lut_idx.long().gather(1, tbl3.long())[:, :, None]
+    lut_at = (rows3 << dec_cuda.LUT_BITS) + (v23 >> 3)
     n_words = torch.unique((pos >> 3).clamp(0, words3.numel() - 1)).numel()
     d3_bytes = (8 * n_words + torch.unique(lut_at).numel() + 12 * offs.numel()
                 + 4 * (lut_idx.numel() + base.numel() + perm.numel()) + 8 * n3)
+    # Its first pass against its plain version, and the symbols whose
+    # bucket holds several lengths, so the step reads the 1 MiB LUT row.
+    first_ref = dec_cuda.first_level_tables_ref(lut3)
+    first_err = max_abs_err(dec_cuda.first_level_tables(lut3), first_ref)
+    if first_err != 0:
+        raise AssertionError(f"dec_symbols' first-level tables disagree with their plain version ({first_err})")
+    first_bits = dec_cuda.FIRST_BITS
+    marked = first_ref.view(-1)[(rows3 << first_bits) + (v23 >> (23 - first_bits))] == 0
+    n_marked = int(marked.sum())
     print(f"dec_symbols shapes: groups {tuple(offs.shape)}, tables {tuple(base.shape[:2])}, LUT rows "
-          f"{args3[3].shape[0]}; {n3} symbols, {n_words} window words and {torch.unique(lut_at).numel()} LUT "
-          f"entries reached, {int((syms_w == -2).sum())} symbols -2")
+          f"{lut3.shape[0]}; {n3} symbols, {n_words} window words and {torch.unique(lut_at).numel()} LUT "
+          f"entries reached, {int((syms_w == -2).sum())} symbols -2; first-level tables of 2^{first_bits} "
+          f"buckets exact (tolerance 0), {int((first_ref == 0).sum())} of {first_ref.numel()} buckets marked, "
+          f"{n_marked} symbols ({n_marked / n3:.6f}) read the 1 MiB row")
     stats["dec_symbols"] = compare("dec_symbols", lambda: dec_cuda.decode_groups(*args3),
-                                   lambda: dec_cuda.decode_groups_ref(*args3), 3, nbytes=d3_bytes, ops=8 * n3)
-    del syms_w, lens_w, lens3, pos, lut_at, args3, words3, offs, tbl3, lut_idx, base, perm
+                                   lambda: dec_cuda.decode_groups_ref(*args3), 3, nbytes=d3_bytes, ops=8 * n3,
+                                   device=True)
+    del syms_w, lens_w, lens3, pos, v23, rows3, lut_at, marked, first_ref, args3, words3, offs, tbl3, lut3
+    del lut_idx, base, perm
     (js,) = captured.pop("mtf_dec")
     # mtf_dec's bytes: the move indices read, the permutations (256 B a
     # chunk) and emits (128 B a chunk) written; its operations: each move
     # shifts j + 1 list entries.
-    print(f"mtf_dec shapes: move indices {tuple(js.shape)} ({js.shape[1] // mtf_dec_cuda.CHUNK} chunks a block), "
-          f"literals {int((js > 0).sum())}")
+    chunk = mtf_dec_cuda.CHUNK
+    steps = torch.arange(1, chunk + 1, device=dev)
+    walked = torch.where(js.view(-1, chunk) > 0, steps, 0).amax(1)  # steps up to the last nonzero index
+    pair = mtf_dec_cuda.WARP_CHUNKS
+    padded = torch.cat([walked, walked.new_zeros(-walked.numel() % pair)])
+    warp_steps = int(((padded.view(-1, pair).amax(1) + 3) // 4 * 4).sum()) * pair  # in groups of four steps
+    print(f"mtf_dec shapes: move indices {tuple(js.shape)} ({js.shape[1] // chunk} chunks a block), "
+          f"literals {int((js > 0).sum())}; trailing padding {1 - int(walked.sum()) / js.numel():.4f} of the "
+          f"steps, {1 - warp_steps / js.numel():.4f} skipped by the kernel (a warp walks to the last nonzero "
+          f"index of its {pair} chunks)")
     stats["mtf_dec"] = compare("mtf_dec", lambda: mtf_dec_cuda.chunk_perms(js),
                                lambda: mtf_dec_cuda.chunk_perms_ref(js), 3, nbytes=4 * js.numel(),
-                               ops=int(js.long().sum()) + js.numel())
-    del js, captured, bt, words, tbl, n_groups
+                               ops=int(js.long().sum()) + js.numel(), device=True)
+    del js, captured, bt, words, tbl, n_groups, walked, padded
     # crc_ranges and block_cuts at the shapes of the intake's first chunk
     # of the corpus: its window, its pieces' sums and its blocks' ranges.
     corpus_arr = np.frombuffer(corpus, np.uint8)

@@ -4,7 +4,9 @@ the CPU path, for compress (levels 1 and 5), compress_device_intake (with
 its crc_ranges and block_cuts kernels at edge shapes and at an 8 MiB
 chunk, once each per intake call of an escalating input),
 decompress_device (with its dec_symbols and mtf_dec kernels at the
-decode's own shapes, on a good and a corrupt stream), the stream and file layer (compress_file, a
+decode's own shapes, on a good and a corrupt stream; dec_symbols' first
+pass, and both on random inputs, on tables whose codes reach 20 bits and
+on chunks that end in zeros at every offset), the stream and file layer (compress_file, a
 checkpoint resumed, BZ2File), the per-block encode of the block mesh
 (encode_blocks, pack_blocks then concat_block_words), the per-block
 compress path (BZ2TPU_DEVICE_STITCH=0) and an exported build with kernels
@@ -33,6 +35,7 @@ from bz2tpu_torch.runtime import compressor, device_decode
 from bz2tpu_torch.runtime.compressor import _batch_tensors, split_blocks
 from bz2tpu_torch.utils.corpus import make_mixed_corpus
 
+from dec_kernel_cases import deep_lengths, table_tensors, trailing_zero_rows
 from huffman_cases import PLAN_CASES, plan_case
 
 pytestmark = pytest.mark.cuda
@@ -453,6 +456,81 @@ def test_mtf_dec_kernel_matches_plain(cuda, n_chunks):
     off = torch.zeros(128 * B + 16, dtype=torch.uint8, device=cuda)[1 : 1 + 128 * B].view(B, 128)
     with pytest.raises(ValueError):
         mtf_dec_cuda.chunk_perms(off)  # off 16-byte alignment
+
+
+def test_dec_symbols_first_level_kernel_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    rng = np.random.default_rng(61)
+    real = table_tensors([deep_lengths(rng, a, m) for a, m in ((21, 20), (258, 17), (40, 14))], 1, cuda)["lut"]
+    rand = torch.randint(-128, 128, (5, 1 << 20), device=cuda, generator=gen).to(torch.int8)
+    runs = torch.repeat_interleave(torch.randint(-3, 24, (4000,), device=cuda, generator=gen),
+                                   torch.randint(1, 1200, (4000,), device=cuda, generator=gen))
+    for lut in (real, rand, runs[: 2 << 20].to(torch.int8).view(2, -1), torch.cat([real, rand])):
+        want = dec_cuda.first_level_tables_ref(lut)
+        _equal(dec_cuda.first_level_tables(lut), want)
+    assert bool((want == 0).any()) and bool((dec_cuda.first_level_tables_ref(real) != 0).any())
+    with pytest.raises(ValueError):
+        dec_cuda.first_level_tables(torch.zeros(2 << 20, dtype=torch.int8, device=cuda)[1:1 + (1 << 20)].view(1, -1))
+
+
+@pytest.mark.parametrize("T", [1, 6])
+@pytest.mark.parametrize("G", [1, 129, 4_999])
+def test_dec_symbols_on_real_tables_with_long_codes(cuda, T, G):
+    # Complete codes whose longest reach 14 to 20 bits, so windows in the
+    # buckets they share with other lengths read the 1 MiB LUT row; a
+    # stream of random bytes with runs of 0xff (the all-ones windows are
+    # the long codes); each block's groups start at random bits, its last
+    # group in the stream's last bytes, where the refills read past the
+    # end; group counts that are not a multiple of the CTA tile.
+    rng = np.random.default_rng(71 + 10 * T + G)
+    B, n_bytes = 3, 40_000
+    # Table 0 is the chain 1, 2, ..., max_len: its bucket of twelve ones
+    # holds codes of 13 to max_len bits.
+    chain = int(rng.integers(14, 21))
+    tables = [deep_lengths(rng, chain + 1, chain)]
+    tables += [deep_lengths(rng, int(rng.integers(21, 259)), int(rng.integers(14, 21))) for _ in range(T - 1)]
+    t = table_tensors(tables, B, cuda)
+    raw = rng.integers(0, 256, n_bytes).astype(np.uint8)
+    for at in rng.integers(0, n_bytes - 64, 400):
+        raw[at : at + int(rng.integers(2, 64))] = 0xFF
+    words = huffman_dec.window_words(torch.from_numpy(raw).to(cuda))
+    offs = np.sort(rng.integers(0, 8 * n_bytes - 40, (B, G)), axis=1)
+    offs[:, -1] = 8 * n_bytes - np.arange(1, B + 1) * 9  # a few bits before the end
+    offs = torch.from_numpy(offs).to(cuda)
+    tbl = torch.from_numpy(rng.integers(0, T, (B, G)).astype(np.int32)).to(cuda)
+    args = (words, offs, tbl, t["lut"], t["lut_idx"], t["base"], t["perm"])
+    want = dec_cuda.decode_groups_ref(*args)
+    launches = dec_cuda.LAUNCHES["dec_symbols"]
+    got = dec_cuda.decode_groups(*args)
+    _equal(got[0], want[0])
+    _equal(got[1], want[1])
+    assert dec_cuda.LAUNCHES["dec_symbols"] == launches + 1
+    if G > 1_000:  # windows in marked buckets, and codes longer than the first level
+        assert int(want[1].max()) > dec_cuda.FIRST_BITS
+        first = dec_cuda.first_level_tables_ref(t["lut"])
+        lens = want[1].view(B, G, 50).long()
+        pos = offs[:, :, None] + lens.cumsum(2) - lens
+        v = dec_cuda.window23(words, pos)
+        rows = t["lut_idx"].long().gather(1, tbl.long())[:, :, None]
+        assert bool((first.view(-1)[(rows << dec_cuda.FIRST_BITS) + (v >> (23 - dec_cuda.FIRST_BITS))] == 0).any())
+
+
+def test_mtf_dec_trailing_zeros_at_every_offset_on_one_block(cuda):
+    # One block of 7,032 chunks (the one-block batch of the 16 MB stream)
+    # whose chunk c ends in zeros from offset c % 129: all-zero chunks,
+    # chunks with no zero, and every offset between; then the same with
+    # small indices, as real data has them, and rows of zeros.
+    rng = np.random.default_rng(81)
+    for hi in (256, 9):
+        js = torch.from_numpy(trailing_zero_rows(rng, 7_032, hi)).to(cuda)
+        want = mtf_dec_cuda.chunk_perms_ref(js)
+        got = mtf_dec_cuda.chunk_perms(js)
+        _equal(got[0], want[0])
+        _equal(got[1], want[1])
+    zeros = torch.zeros(3, 128 * 70, dtype=torch.uint8, device=cuda)
+    q, emit = mtf_dec_cuda.chunk_perms(zeros)
+    _equal(q, torch.arange(256, dtype=torch.uint8, device=cuda).expand(3, 70, 256))
+    assert not bool(emit.any())
 
 
 @pytest.mark.parametrize("corrupt", [False, True])

@@ -13,7 +13,8 @@ corpus back with no host fallback), one clocked run (the per-stage seconds,
 and the steps inside "huffman" and "mtf" where the checkout splits them),
 and one run under torch.profiler with device activity only (device events,
 kernels among them, busy seconds, the costliest ops; chip_smoke.py's
-device_profile of this checkout). The host C decoder
+device_profile of this checkout), with the device seconds and launches of
+each decode kernel by name. The host C decoder
 and stdlib bz2 decode the same stream in the same run. It prints one JSON
 object: the card's name and power limit, the root, the stream's CRC-32,
 the walls, MB/s, the split, the trace and each decode kernel's launches
@@ -35,6 +36,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 LEVEL = 9
+# The decode's kernels as the trace names them (dec_symbols' first pass is
+# lut_first_level since its redesign).
+DECODE_KERNEL_NAMES = ("dec_chain", "dec_symbols", "lut_first_level", "mtf_dec")
 CORPUS_BYTES = 16_000_000
 
 
@@ -94,7 +98,7 @@ def main() -> int:
     clocked, clocked_s = wall(lambda: decode(timings, split) if has_split else decode(timings))
     if clocked != corpus:
         raise AssertionError("the clocked device decode does not give the corpus back")
-    trace = device_profile(decode, top=15)
+    trace = device_profile(decode, top=None)
     if trace["result"] != corpus:
         raise AssertionError("the traced device decode does not give the corpus back")
     _, host_s = wall(lambda: bz2tpu_torch.decompress(stream))
@@ -117,7 +121,10 @@ def main() -> int:
         "kernel_events": trace["kernel_events"],
         "device_busy_s": trace["busy_s"],
         "busy_share_of_min_unprofiled_wall": trace["busy_s"] / min(walls),
-        "top": trace["top"],
+        "top": trace["top"][:15],
+        "decode_kernels": {name: {"s": sum(op["s"] for op in trace["top"] if name in op["name"]),
+                                  "launches": sum(op["launches"] for op in trace["top"] if name in op["name"])}
+                           for name in DECODE_KERNEL_NAMES},
     }))
     return 0
 
