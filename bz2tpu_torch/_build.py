@@ -54,9 +54,10 @@ SIGNATURES = {
     "bz2t_lut_first_level": (_P, _I, _P, _P),
     "bz2t_dec_symbols": (_P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "bz2t_mtf_dec": (_P, _L, _P, _P, _P),
-    "bz2t_crc_ranges_work": (_L, _I),
-    "bz2t_crc_ranges": (_P, _L, _P, _I, _P, _P, _P),
-    "bz2t_block_cuts": (_P, _P, _L, _P, _L, _I, _P, _P, _P, _P),
+    "bz2t_crc_ranges_tiles": (_L,),
+    "bz2t_crc_ranges_work": (_I, _I),
+    "bz2t_crc_ranges": (_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
+    "bz2t_block_cuts": (_P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -41,10 +41,14 @@ Phases (any failure exits non-zero; nothing is caught):
      of two checkouts on those batches); the intake kernels against their
      plain versions (exact) at the shapes of the intake's first 8 MiB
      chunk of the corpus: block_cuts on its pieces' sums (with its latency
-     bound: a dependent load a live cut at L2's latency, which
-     tools/load_latency.py's pointer chase measures), crc_ranges on its blocks' ranges (beside the host C
+     bound: one 256-ary search's dependent loads and a window's at L2's
+     latency, which tools/load_latency.py's pointer chase measures; none
+     of its cuts may search past its window) and on synthetic sums whose
+     cuts do (steps above 5, duplicates: the slow path, counted),
+     crc_ranges on its blocks' ranges (beside the host C
      splitter's time over the same bytes, a yardstick), on 16 ranges some
-     of them empty, and on a widened 32 MiB chunk;
+     of them empty, and on a widened 32 MiB chunk; each with its device
+     time by torch.profiler;
      (b) decompress_device of phase 3's stream and of stdlib's, each equal to the corpus and
      decoded on the card with no host fallback, with dec_chain,
      dec_symbols and mtf_dec launched on each, timed against the host C
@@ -121,8 +125,10 @@ The script imports nothing of JAX or of the JAX package. The line before
 the last is the kernel table as JSON: per kernel its launches on the 16 MB
 compress (dec_chain, dec_symbols, mtf_dec: on the decode of the port's
 stream; crc_ranges, block_cuts: on its intake compress), its time and
-its plain version's at the shapes above (dec_symbols and mtf_dec also
-their device time, device_ms), the library call's where one
+its plain version's at the shapes above (dec_symbols, mtf_dec,
+crc_ranges and block_cuts also their device time, device_ms, and the
+same calls queued behind a sleep on the device, queued_ms), the
+library call's where one
 computes the same function, and its bound: the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s, or its operations over
 67 T/s where those take longer. The last line is {"ok": true, "device":
@@ -154,6 +160,9 @@ COLD_TIMEOUT_S = 300  # phase 7: each fresh process's wall-clock limit
 ZEROS_BYTES = 24_000_000  # phase 4c: an input whose window widens twice
 
 
+QUEUE_CYCLES_PER_CALL = 200_000  # queued_ms: the sleep a call, ~0.1 ms at the card's clock
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps runs, after one warm-up."""
     fn()
@@ -168,10 +177,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Milliseconds of device time per fn() over reps runs after one
-    warm-up: every kernel's time by torch.profiler, without the gaps the
-    host leaves between launches (which cuda_ms counts)."""
+def device_events(fn, reps: int) -> dict:
+    """fn() once, then reps calls under torch.profiler (device activity):
+    per device op name, its mean milliseconds a launch over the events
+    the profiler saw, the events it saw, and its launches a call (those
+    events over reps, at least 1). Means over the events seen, not over
+    reps, so that events the profiler drops do not read as a faster
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -181,10 +193,51 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
+    seen: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.elapsed_us() > 0:
+            entry = seen.setdefault(e.name, [0.0, 0])
+            entry[0] += e.time_range.elapsed_us() / 1e3
+            entry[1] += 1
+    if not seen:
         raise AssertionError("the profiler recorded no device time")
-    return total_us / 1e3 / reps
+    return {name: {"ms": total / count, "events": count, "per_call": max(1, round(count / reps))}
+            for name, (total, count) in seen.items()}
+
+
+def call_ms(ops: dict) -> float:
+    """Device milliseconds a call from device_events: each op's mean a
+    launch times its launches a call."""
+    return sum(op["ms"] * op["per_call"] for op in ops.values())
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device time per fn() over reps runs after one
+    warm-up, by torch.profiler (device_events), without the gaps the host
+    leaves between launches (which cuda_ms counts)."""
+    return call_ms(device_events(fn, reps))
+
+
+def queued_ms(fn, reps: int) -> tuple[float, bool]:
+    """Milliseconds per fn() by CUDA events, with the reps calls queued
+    behind a kernel that sleeps longer than the host takes to issue them:
+    the device runs them back to back, so the time leaves out the host's
+    issue time and keeps the device's own gaps between launches (a bound
+    from above on the kernels' time); and whether the sleep did outlast
+    the issue (if not, host time is in)."""
+    fn()
+    torch.cuda.synchronize()
+    before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    before.record()
+    torch.cuda._sleep(int(reps * QUEUE_CYCLES_PER_CALL))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, before.elapsed_time(start) > issue_ms
 
 
 def max_abs_err(got, want) -> int:
@@ -206,7 +259,8 @@ def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None, dev
     """Kernel call fn() against its plain version ref() on the same inputs:
     exact agreement, then both timed, with the library call where there is
     one, and the kernel's bound from the bytes and operations given; with
-    ``device``, also the kernels' device time alone (device_ms)."""
+    ``device``, also the kernels' device time alone (device_ms), held
+    against the same launches queued on the device (queued_ms)."""
     got, want = fn(), ref()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -222,8 +276,12 @@ def compare(name, fn, ref, reps, *, nbytes: int, ops: int = 0, library=None, dev
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
     if device:
-        row["device_ms"] = device_ms(fn, 10 * reps)
-        print(f"kernel {name}: device {row['device_ms']:.4f} ms a call ({10 * reps} calls, torch.profiler); "
+        ops = device_events(fn, 10 * reps)
+        row["device_ms"], events = call_ms(ops), sum(op["events"] for op in ops.values())
+        row["queued_ms"], queued = queued_ms(fn, 10 * reps)
+        print(f"kernel {name}: device {row['device_ms']:.4f} ms a call ({10 * reps} calls, torch.profiler, "
+              f"{events} device events seen); queued {row['queued_ms']:.4f} ms a call (CUDA events, the calls "
+              f"queued behind a sleep{'' if queued else ' that did NOT outlast their issue, host time in'}); "
               f"{ms / bound_ms:.2f} x its bound by events, {row['device_ms'] / bound_ms:.2f} x by device time")
     return row
 
@@ -322,6 +380,59 @@ def decode_kernel_inputs(stream: bytes, dev) -> dict:
     finally:
         huffman_dec.decode_groups, mtf_dec.chunk_perms = real_groups, real_perms
     return captured
+
+
+def intake_kernel_inputs(corpus: bytes, dev) -> dict:
+    """The arguments the intake's first chunk of the corpus hands
+    block_cuts and crc_ranges: the chunk window ("chunk", its first "take"
+    bytes the corpus's, "padded" its host copy), its pieces' sums
+    ("cut_args": piece_out_cum, piece_raw_cum, n_pieces), "cap", the cuts
+    the plain block_cuts_ref makes ("cuts") and its blocks' raw ranges
+    ("starts", "ends")."""
+    import numpy as np
+
+    from bz2tpu_torch.format import constants as C
+    from bz2tpu_torch.ops import rle1
+    from bz2tpu_torch.ops.intake import chunk_capacity
+    from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH
+
+    chunk_n, cap = chunk_capacity(LEVEL, DEFAULT_BATCH), C.block_capacity(LEVEL)
+    take = min(chunk_n, len(corpus))
+    padded = np.zeros(chunk_n, np.uint8)
+    padded[:take] = np.frombuffer(corpus, np.uint8)[:take]
+    chunk = torch.from_numpy(padded).to(dev)
+    enc = rle1.rle1_encode(chunk, take)
+    cut_args = (enc["piece_out_cum"], enc["piece_raw_cum"], enc["n_pieces"])
+    cuts = rle1.block_cuts_ref(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), cuts[1][:-1]])
+    return {"chunk": chunk, "take": take, "padded": padded, "cut_args": cut_args, "cap": cap, "cuts": cuts,
+            "starts": starts, "ends": cuts[1]}
+
+
+def slow_path_sums(dev, n: int = 1 << 20, seed: int = 14) -> tuple:
+    """Sorted per-piece sums that block_cuts' windows do not hold: output
+    steps of 1 with a fifth of them 0 (duplicates) and one in twenty a jump
+    of 6 to 5,000 (a cut overshoots by more than 4), INT32_MAX past the
+    last 1% of entries; (piece_out_cum, piece_raw_cum, n_pieces)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    steps = (rng.random(n) >= 0.2).astype(np.int64) + np.where(rng.random(n) < 0.05, rng.integers(6, 5001, n), 0)
+    n_pieces = n - n // 100
+    out = np.cumsum(steps)
+    raw = np.cumsum(rng.integers(1, 256, n))
+    out[n_pieces:] = raw[n_pieces:] = 2**31 - 1
+    return (torch.from_numpy(out.astype(np.int32)).to(dev), torch.from_numpy(raw.astype(np.int32)).to(dev),
+            torch.tensor(n_pieces, dtype=torch.int32, device=dev))
+
+
+def search_steps(n: int) -> int:
+    """Dependent steps of a 256-ary search over n entries: the fewest a
+    warp needs with 256 entries in flight a step (block_cuts' bound)."""
+    steps, span = 0, n
+    while span > 1:
+        span, steps = -(-span // 256), steps + 1
+    return max(steps, 1)
 
 
 def intake_split(chunk, length: int, level: int, max_blocks: int, reps: int = 5) -> dict | None:
@@ -1282,45 +1393,62 @@ def main() -> int:
     # crc_ranges and block_cuts at the shapes of the intake's first chunk
     # of the corpus: its window, its pieces' sums and its blocks' ranges.
     corpus_arr = np.frombuffer(corpus, np.uint8)
-    chunk_n, cap = chunk_capacity(LEVEL, DEFAULT_BATCH), C.block_capacity(LEVEL)
-    take = min(chunk_n, len(corpus))
-    padded = np.zeros(chunk_n, np.uint8)
-    padded[:take] = corpus_arr[:take]
-    chunk = torch.from_numpy(padded).to(dev)
-    enc = rle1.rle1_encode(chunk, take)
-    cut_args = (enc["piece_out_cum"], enc["piece_raw_cum"], enc["n_pieces"])
-    out_cuts, raw_cuts, n_cut = rle1.block_cuts_ref(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH)
-    starts_raw = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), raw_cuts[:-1]])
-    n_entries, n_pieces = enc["piece_out_cum"].shape[0], int(enc["n_pieces"])
+    ik = intake_kernel_inputs(corpus, dev)
+    chunk, take, padded, cap, cut_args = ik["chunk"], ik["take"], ik["padded"], ik["cap"], ik["cut_args"]
+    chunk_n = chunk.shape[0]
+    _, raw_cuts, n_cut = ik["cuts"]
+    starts_raw = ik["starts"]
+    n_entries, n_pieces = cut_args[0].shape[0], int(cut_args[2])
     live = int(n_cut)
     print(f"intake kernel shapes: chunk {chunk_n} B ({take} of the corpus), {n_pieces} pieces of "
           f"{n_entries} entries, {live} blocks, raw cuts {raw_cuts.tolist()}")
     # block_cuts' bytes: what the function needs, a binary search of
     # ceil(log2 n_pieces) + 1 entries and the two sums at the cut for each
     # live block, n_pieces read, the cuts and n_blocks written; a compare
-    # an entry searched. What bounds it is latency: each cut's search
-    # starts from the sum the one before found, so it is at least one
-    # dependent load a live cut, each at L2's latency (tools/load_latency.py).
+    # an entry searched. What bounds it is latency: every cut is searched
+    # at once (a cut overshoots its target by at most 4 bytes, so where
+    # each can land is known ahead), so the least chain of dependent loads
+    # is one search's, at most 256 entries a step in flight for a warp
+    # (ceil(log256 N) loads), then the window of sums it found, each at
+    # L2's latency (tools/load_latency.py).
     probes = (n_pieces - 1).bit_length() + 1
     stats["block_cuts"] = compare(
         "block_cuts", lambda: rle1_cuda.block_cuts(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH),
         lambda: rle1.block_cuts_ref(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH), 20,
-        nbytes=live * (4 * probes + 8) + 4 + 4 * (2 * DEFAULT_BATCH + 1), ops=live * probes)
+        nbytes=live * (4 * probes + 8) + 4 + 4 * (2 * DEFAULT_BATCH + 1), ops=live * probes, device=True)
+    slow = int(rle1_cuda.block_cuts(*cut_args, cap=cap, max_blocks=DEFAULT_BATCH, with_slow=True)[3])
     spec = importlib.util.spec_from_file_location("load_latency", ROOT / "tools" / "load_latency.py")
     load_latency = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(load_latency)
     l2_ns = load_latency.dependent_load_ns(load_latency.WARM_BYTES, warm=True)
-    kernel_loads = live * (-(-(n_entries - 1).bit_length() // 5) or 1)  # its 32-ary steps: ceil(log32 N) a cut
-    print(f"block_cuts latency bound: {live} dependent loads (one a live cut) x {l2_ns:.1f} ns (L2, a pointer "
-          f"chase) = {live * l2_ns * 1e-6:.6f} ms; the kernel makes {kernel_loads} ({live} x ceil(log32 "
-          f"{n_entries})), {stats['block_cuts']['ms'] * 1e6 / kernel_loads:.1f} ns each with the launch")
+    chain = search_steps(n_entries) + 1
+    print(f"block_cuts latency bound: {chain} dependent loads (ceil(log256 {n_entries}) search steps and one "
+          f"window) x {l2_ns:.1f} ns (L2, a pointer chase) = {chain * l2_ns * 1e-6:.6f} ms; device "
+          f"{stats['block_cuts']['device_ms']:.4f} ms; cuts that searched past their window: {slow} of {live}")
+    if slow:
+        raise AssertionError(f"block_cuts took the slow path for {slow} cuts of the corpus's first chunk")
+    # Sums the windows do not hold (steps above 5, duplicates): the slow
+    # path on the card against the plain version.
+    syn = slow_path_sums(dev)
+    syn_live = int(rle1.block_cuts_ref(*syn, cap=cap, max_blocks=DEFAULT_BATCH)[2])
+    syn_probes = (int(syn[2]) - 1).bit_length() + 1
+    compare("block_cuts_slow_path", lambda: rle1_cuda.block_cuts(*syn, cap=cap, max_blocks=DEFAULT_BATCH),
+            lambda: rle1.block_cuts_ref(*syn, cap=cap, max_blocks=DEFAULT_BATCH), 20,
+            nbytes=syn_live * (4 * syn_probes + 8) + 4 + 4 * (2 * DEFAULT_BATCH + 1), ops=syn_live * syn_probes,
+            device=True)
+    syn_slow = int(rle1_cuda.block_cuts(*syn, cap=cap, max_blocks=DEFAULT_BATCH, with_slow=True)[3])
+    print(f"block_cuts on {syn[0].shape[0]} synthetic sums (steps 0, 1 and 6-5,000): {syn_slow} of {syn_live} "
+          f"live cuts searched past their window")
+    if syn_slow == 0:
+        raise AssertionError("the synthetic sums did not drive block_cuts' slow path")
+    del syn
     # crc_ranges' bytes: the bytes its ranges cover, read once, the ranges
     # read and the CRCs written; its operations some 5 a byte.
     covered = int(raw_cuts.max())
     stats["crc_ranges"] = compare(
         "crc_ranges", lambda: crc_cuda.crc_ranges(chunk, starts_raw, raw_cuts),
         lambda: crc.crc32_ranges_ref(chunk, starts_raw, raw_cuts), 10,
-        nbytes=covered + 16 * DEFAULT_BATCH, ops=5 * covered)
+        nbytes=covered + 16 * DEFAULT_BATCH, ops=5 * covered, device=True)
     # The blocks before the chunk's last are the host splitter's too.
     want_crcs = [b.crc for b in blocks[: live - 1]]
     if crc_cuda.crc_ranges(chunk, starts_raw, raw_cuts)[: live - 1].tolist() != want_crcs:
@@ -1335,7 +1463,8 @@ def main() -> int:
     s16[:4] = e16[:4] = [0, chunk_n, chunk_n // 2, 12345]
     s16_t, e16_t = torch.from_numpy(s16).to(dev), torch.from_numpy(e16).to(dev)
     compare("crc_ranges_b16", lambda: crc_cuda.crc_ranges(chunk, s16_t, e16_t),
-            lambda: crc.crc32_ranges_ref(chunk, s16_t, e16_t), 10, nbytes=chunk_n + 24 * 16, ops=5 * chunk_n)
+            lambda: crc.crc32_ranges_ref(chunk, s16_t, e16_t), 10, nbytes=chunk_n + 24 * 16, ops=5 * chunk_n,
+            device=True)
     # A widened window, 32 MiB (the corpus, then zeros), cut into 8
     # ranges that cover it.
     wide = torch.zeros(4 * chunk_n, dtype=torch.uint8, device=dev)
@@ -1344,8 +1473,8 @@ def main() -> int:
     wstarts = wcuts - wide.shape[0] // DEFAULT_BATCH
     compare("crc_ranges_32MiB", lambda: crc_cuda.crc_ranges(wide, wstarts, wcuts),
             lambda: crc.crc32_ranges_ref(wide, wstarts, wcuts), 10, nbytes=wide.shape[0] + 16 * DEFAULT_BATCH,
-            ops=5 * wide.shape[0])
-    del chunk, enc, cut_args, wide
+            ops=5 * wide.shape[0], device=True)
+    del chunk, ik, cut_args, wide
     # Every batch of both 16 MB streams: the share of the steps that read
     # the map directly (their window missed), and the kernel's time on the
     # batch where that share is largest.
@@ -1485,7 +1614,7 @@ def main() -> int:
         # holds the host's issue of each call too).
         print("  intake kernels on the device: " + "; ".join(
             f"{t['name']} {t['s'] * 1e3:.4f} ms over {t['launches']}" for t in trace["top"]
-            if any(k in t["name"] for k in ("crc_spans", "crc_finish", "block_cuts"))))
+            if any(k in t["name"] for k in INTAKE_KERNELS)))
         del chunk
         # An escalating input: zeros RLE1 each window into one under-full
         # block, so the window widens from 8 to 16 to 32 MiB.

@@ -30,7 +30,7 @@ from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huf
 from bz2tpu_torch.ops import crc, crc_cuda, intake, mtf_dec_cuda, rle1, rle1_cuda
 from bz2tpu_torch.ops.bwt import bwt_stage
 from bz2tpu_torch.format import constants as C
-from bz2tpu_torch.format.crc32 import crc32_serial
+from bz2tpu_torch.format.crc32 import crc32, crc32_serial
 from bz2tpu_torch.runtime import compressor, device_decode
 from bz2tpu_torch.runtime.compressor import _batch_tensors, split_blocks
 from bz2tpu_torch.utils.corpus import make_mixed_corpus
@@ -603,8 +603,9 @@ def test_crc_ranges_kernel_matches_plain(cuda, n, b):
 
 def test_crc_ranges_kernel_off_16_byte_alignment_and_over_many_ctas(cuda):
     # A chunk that starts one byte past an aligned address (the scalar
-    # path) and one of 32 MiB + 4 KiB (2,049 CTAs: pass 2 folds runs; the
-    # plain version then takes 4,096 lanes).
+    # path) and one of 32 MiB + 4 KiB (a tile more than a power of two, so
+    # the look-back crosses many windows; the plain version then takes
+    # 4,096 lanes).
     rng = np.random.default_rng(1300)
     base = torch.from_numpy(rng.integers(0, 256, (1 << 16) + 1, dtype=np.uint8)).to(cuda)
     for chunk in (base[1:], torch.from_numpy(rng.integers(0, 256, (1 << 25) + 4096, dtype=np.uint8)).to(cuda)):
@@ -613,6 +614,72 @@ def test_crc_ranges_kernel_off_16_byte_alignment_and_over_many_ctas(cuda):
         s_t = torch.from_numpy(np.concatenate([pts[:8], [n, 0, pts[3]]])).to(cuda)
         e_t = torch.from_numpy(np.concatenate([pts[8:], [n, n, pts[3]]])).to(cuda)
         _equal(crc_cuda.crc_ranges(chunk, s_t, e_t), crc.crc32_ranges_ref(chunk, s_t, e_t))
+
+
+def test_crc_ranges_kernel_endpoints_at_every_segment_offset_over_many_tiles(cuda):
+    # 3 MiB + 5 bytes: not a multiple of 16, and 97 tiles, more than one
+    # warp's look-back window of 32. Ranges start and end at every offset
+    # 0-64 of the segment that ends the fifth tile (64 bytes a thread), so
+    # every one crosses a tile boundary or ends on one; a start on every
+    # offset of the last, short segment; the whole chunk; then 200 random
+    # ranges, so that the endpoints outnumber a CTA's threads. The serial
+    # CRC (the C core's) is the oracle: the plain version would take one
+    # lane here.
+    rng = np.random.default_rng(1310)
+    n = 3 * (1 << 20) + 5
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    seg = 5 * crc_cuda.TILE_BYTES - 64
+    offs = np.arange(65)
+    tail = n - n % 64
+    a, c = rng.integers(0, n + 1, 200), rng.integers(0, n + 1, 200)
+    starts = np.concatenate([seg + offs, np.full(65, seg - 1000), tail + np.arange(n % 64 + 1), [0, 0],
+                             np.minimum(a, c)])
+    ends = np.concatenate([seg + offs + 1500, seg + offs, np.full(n % 64 + 1, n), [n, crc_cuda.TILE_BYTES],
+                           np.maximum(a, c)])
+    chunk = torch.from_numpy(data).to(cuda)
+    for dtype in (torch.int32, torch.int64):
+        s_t, e_t = torch.from_numpy(starts).to(cuda, dtype), torch.from_numpy(ends).to(cuda, dtype)
+        assert crc_cuda.crc_ranges(chunk, s_t, e_t).tolist() == [crc32(data[s:e]) for s, e in zip(starts, ends)]
+
+
+def test_crc_ranges_kernel_from_two_threads_on_one_stream(cuda):
+    # Host threads call the kernel on the same stream, so they share its
+    # workspace; which status array a call takes is counted on the card,
+    # so every call of every thread stays exact. The interpreter switches
+    # threads every microsecond here, so that calls interleave often.
+    import sys
+    import threading
+
+    rng = np.random.default_rng(1320)
+    n = (1 << 20) + 77
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    a, c = rng.integers(0, n + 1, 16), rng.integers(0, n + 1, 16)
+    starts, ends = np.minimum(a, c), np.maximum(a, c)
+    want = [crc32(data[s:e]) for s, e in zip(starts, ends)]
+    chunk = torch.from_numpy(data).to(cuda)
+    s_t, e_t = torch.from_numpy(starts).to(cuda), torch.from_numpy(ends).to(cuda)
+    stream = torch.cuda.current_stream(cuda)
+    got: dict[int, list] = {k: [] for k in range(4)}
+
+    def calls(k: int) -> None:
+        with torch.cuda.stream(stream):
+            for _ in range(300):
+                got[k].append(crc_cuda.crc_ranges(chunk, s_t, e_t))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=calls, args=(k,)) for k in got]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize(cuda)
+    assert [len(v) for v in got.values()] == [300] * 4
+    bad = sum(crcs.tolist() != want for v in got.values() for crcs in v)
+    assert bad == 0, f"{bad} of 1200 calls disagree"
 
 
 @pytest.mark.parametrize("kind", ["text", "runs", "random", "zeros", "empty"])
@@ -639,6 +706,47 @@ def test_block_cuts_kernel_matches_plain(cuda, kind, level, max_blocks):
             for g, w in zip(rle1_cuda.block_cuts(*sums, cap=cap, max_blocks=8),
                             rle1.block_cuts_ref(*sums, cap=cap, max_blocks=8)):
                 _equal(g, w)
+
+
+def _sums(rng, n: int, kind: str, n_pieces: int) -> tuple[np.ndarray, np.ndarray]:
+    """Sorted output and raw sums, INT32_MAX past n_pieces: RLE1's steps of
+    1 to 5, steps above 5, duplicates, or steps of 1 with some duplicates
+    and long jumps."""
+    if kind == "rle1":
+        steps = rng.integers(1, 6, n)
+    elif kind == "wide":
+        steps = rng.integers(6, 60, n)
+    elif kind == "duplicates":
+        steps = rng.integers(0, 2, n) * rng.integers(1, 6, n)
+    else:
+        steps = (rng.random(n) >= 0.2).astype(np.int64) + np.where(rng.random(n) < 0.05, rng.integers(6, 5001, n), 0)
+    out, raw = np.cumsum(steps), np.cumsum(rng.integers(1, 256, n))
+    out[n_pieces:] = raw[n_pieces:] = 2**31 - 1
+    return out.astype(np.int32), raw.astype(np.int32)
+
+
+@pytest.mark.parametrize("max_blocks", [1, 8, 40])
+def test_block_cuts_kernel_on_sums_that_leave_their_windows(cuda, max_blocks):
+    # Sums the contract admits but RLE1 never makes: a cut whose answer lies
+    # outside the window its warp loaded searches the rest (the slow path,
+    # counted); n_pieces 0, half and all of N; 40 cuts take two groups.
+    rng = np.random.default_rng(1410 + max_blocks)
+    n = 1 << 18
+    slow = {}
+    for kind in ("rle1", "wide", "duplicates", "jumps"):
+        slow[kind] = 0
+        for n_pieces in (0, n // 2, n):
+            out, raw = _sums(rng, n, kind, n_pieces)
+            sums = (torch.from_numpy(out).to(cuda), torch.from_numpy(raw).to(cuda),
+                    torch.tensor(n_pieces, dtype=torch.int32, device=cuda))
+            for cap in (1, 7, 1000, 50_000):
+                got = rle1_cuda.block_cuts(*sums, cap=cap, max_blocks=max_blocks, with_slow=True)
+                for g, w in zip(got, rle1.block_cuts_ref(*sums, cap=cap, max_blocks=max_blocks)):
+                    _equal(g, w)
+                slow[kind] += int(got[3])
+    assert slow["rle1"] == 0, slow
+    if max_blocks > 1:
+        assert slow["jumps"] > 0, slow
 
 
 def test_compress_device_intake_on_card_launches_d5_d6_once_per_window(cuda, monkeypatch):

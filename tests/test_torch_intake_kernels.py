@@ -10,8 +10,13 @@ its plain torch version:
     bz2tpu.ops.rle1.block_cuts on empty input, one under-full block, cuts
     that land exactly on the capacity or overshoot it, runs and random
     data;
-  * the kernel source's table of x^(2^k) mod P against the polynomial
-    arithmetic it stands for;
+  * crc_ranges' shift maps (ops/crc_cuda.shift_maps, map k moving a state
+    past 2^k zero bytes as nibble tables) and the byte table the kernel
+    derives from them against the polynomial arithmetic they stand for,
+    shifts composed from them against byte steps, and the first design's
+    x^(2^k) table that tools/probe_intake_kernels.cu carries;
+  * the premise of block_cuts' windows on RLE1's sums: every cut lands in
+    the window its warp loads;
   * each wrapper's argument checks, the CPU dispatch (no launch counted)
     and the refusal of any other device;
   * ops/intake.device_intake's step laps, which leave its results as
@@ -126,21 +131,86 @@ def _poly_mulmod(a: int, b: int) -> int:
     return p
 
 
-def test_crc_kernel_table_is_x_to_the_powers_of_two_mod_p():
-    src = (CSRC / "crc_ranges.cu").read_text()
-    body = re.search(r"kXPow2\[32\] = \{(.*?)\};", src, re.S).group(1)
-    table = [int(v, 16) for v in re.findall(r"0x([0-9a-f]{8})u", body)]
+def _x_to_the_powers_of_two() -> list[int]:
+    """x^(2^k) mod P for k = 0..32 by repeated squaring."""
     want, v = [], 2  # x
     for _ in range(33):
         want.append(v)
         v = _poly_mulmod(v, v)
-    assert table == want[:32]
-    assert want[32] == want[0]  # x^(2^32) = x mod P: the kernel takes k mod 32
-    # x^8 moves a state past one zero byte, as the byte table does.
-    x8 = want[3]  # x^(2^3)
+    return want
+
+
+def test_crc_kernel_table_is_x_to_the_powers_of_two_mod_p():
+    # The kernel's shift maps: map k multiplies a state by x^(8 2^k) =
+    # x^(2^(k + 3)) mod P, nibble j of the state holding v mapping to
+    # (v x^(4 j)) x^(2^(k + 3)) mod P; k runs to 31, and x^(2^32) = x
+    # mod P, so the maps cover every byte count below 2^32 (the exponent's
+    # cycle); x^8 moves a state past one zero byte as the byte table does.
+    maps = crc_cuda.shift_maps()
+    assert maps.shape == (32, 8, 16) and maps.dtype == np.uint32
+    xp = _x_to_the_powers_of_two()
+    assert xp[32] == xp[0]
+    for k in range(32):
+        mult = xp[(k + 3) % 32]
+        for j in range(8):
+            assert maps[k, j].tolist() == [_poly_mulmod(v << (4 * j), mult) for v in range(16)], (k, j)
     state = 0x80000001
     stepped = ((state << 8) & 0xFFFFFFFF) ^ int(crc.CRC32_TABLE[state >> 24])
-    assert _poly_mulmod(state, x8) == stepped
+    assert _poly_mulmod(state, xp[3]) == stepped
+    # Map 2 (four zero bytes) is b x^32 on a byte b: the byte table, which
+    # the kernel builds from its polynomial constant; its carry-less
+    # products reduce their high word by map 2 too.
+    byte_table = [int(maps[2, 0, b & 15] ^ maps[2, 1, b >> 4]) for b in range(256)]
+    assert byte_table == crc.CRC32_TABLE.tolist()
+    src = (CSRC / "crc_ranges.cu").read_text()
+    assert int(re.search(r"constexpr u32 kPoly = (0x[0-9A-Fa-f]{8})u;", src).group(1), 16) == 0x04C11DB7
+    assert "return lo ^ apply_map(maps + 2 * kMapWords, hi);" in src
+    for a, b in ((0x80000001, 0x04C11DB7), (0xFFFFFFFF, 0x12345678), (xp[9], xp[17])):
+        prod = 0
+        for i in range(32):
+            if b >> i & 1:
+                prod ^= a << i
+        lo, hi = prod & 0xFFFFFFFF, prod >> 32
+        assert lo ^ int(np.bitwise_xor.reduce([maps[2, j, (hi >> (4 * j)) & 15] for j in range(8)])) == \
+            _poly_mulmod(a, b)
+    # Its tile: 64 bytes a thread, 2^kLogThreads threads.
+    log_seg = int(re.search(r"constexpr int kLogSeg = (\d+);", src).group(1))
+    log_threads = int(re.search(r"constexpr int kLogThreads = (\d+);", src).group(1))
+    assert crc_cuda.TILE_BYTES == 1 << (log_seg + log_threads)
+    # The first design's table, which the probe of tools/ still carries.
+    probe = (CSRC.parent.parent / "tools" / "probe_intake_kernels.cu").read_text()
+    body = re.search(r"kXPow2\[32\] = \{(.*?)\};", probe, re.S).group(1)
+    assert [int(v, 16) for v in re.findall(r"0x([0-9a-f]{8})u", body)] == xp[:32]
+
+
+def test_crc_kernel_shifts_compose_like_the_byte_steps():
+    # A state moved past n zero bytes by one map a set bit of n (the
+    # kernel's shift_bytes) equals the state stepped through n zero bytes,
+    # and a range's CRC follows from its endpoints' states as the kernel
+    # combines them.
+    maps = crc_cuda.shift_maps()
+
+    def shift(v: int, n: int) -> int:
+        k = 0
+        while n:
+            if n & 1:
+                v = int(np.bitwise_xor.reduce([maps[k, j, (v >> (4 * j)) & 15] for j in range(8)]))
+            n, k = n >> 1, k + 1
+        return v
+
+    def step(v: int, data) -> int:
+        for b in data:
+            v = ((v << 8) & 0xFFFFFFFF) ^ int(crc.CRC32_TABLE[(v >> 24) ^ int(b)])
+        return v
+
+    rng = np.random.default_rng(905)
+    for n in (0, 1, 63, 64, 65, 1000, 4097):
+        v = int(rng.integers(0, 2**32))
+        assert shift(v, n) == step(v, bytes(n))
+    data = rng.integers(0, 256, 3000, dtype=np.uint8)
+    for s, e in ((0, 3000), (17, 2999), (1000, 1000), (64, 128)):
+        moved = shift(step(0, data[:s]) ^ 0xFFFFFFFF, e - s)
+        assert moved ^ step(0, data[:e]) ^ 0xFFFFFFFF == crc32_serial(data[s:e])
 
 
 # --- block_cuts --------------------------------------------------------------------
@@ -223,6 +293,33 @@ def test_block_cuts_clamp_to_the_last_piece():
     full = np.array([3, 7, 12], np.int64)
     out_cuts, raw_cuts, n_blocks = _cuts_all(full, full, 3, 1000, 1)
     assert out_cuts.tolist() == [12] and n_blocks == 1
+
+
+@pytest.mark.parametrize("kind", ["text", "runs", "random", "zeros"])
+def test_block_cuts_windows_hold_every_cut_of_rle1_sums(kind):
+    # What the kernel speculates on: a piece's output is 1 to 5 bytes, so
+    # cut m of a group of 31 that starts at a resolved sum B lands within
+    # the window of 4 m + 5 entries from the first entry >= B + (m + 1) cap;
+    # RLE1's sums never send a cut down the slow path.
+    rng = np.random.default_rng(980)
+    n, N = 250_000, 1 << 18
+    padded = np.zeros(N, np.uint8)
+    if kind != "zeros":
+        padded[:n] = np.frombuffer(make_corpus(rng, kind, n), np.uint8)
+    enc = rle1.rle1_encode(torch.from_numpy(padded), n)
+    poc = enc["piece_out_cum"].numpy().astype(np.int64)
+    assert np.diff(poc[: int(enc["n_pieces"])]).min() >= 1 and np.diff(poc[: int(enc["n_pieces"])]).max() <= 5
+    for cap in (1, 7, 100, C.block_capacity(1) // 40):
+        out_cuts, _, n_blocks = rle1.block_cuts_ref(*(enc[k] for k in ("piece_out_cum", "piece_raw_cum", "n_pieces")),
+                                                   cap=cap, max_blocks=64)
+        out_cuts = out_cuts.numpy().astype(np.int64)
+        for b in range(int(n_blocks)):
+            m, group_base = b % 31, (out_cuts[b - b % 31 - 1] if b >= 31 else 0)
+            base = out_cuts[b - 1] if b else 0
+            lo = np.searchsorted(poc, group_base + (m + 1) * cap)
+            answer = np.searchsorted(poc, base + cap)
+            assert lo <= answer, (cap, b)
+            assert answer - lo < 4 * m + 5 or lo + 4 * m + 5 >= N, (cap, b, answer - lo)
 
 
 # --- argument checks, dispatch ------------------------------------------------------

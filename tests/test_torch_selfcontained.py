@@ -1,7 +1,8 @@
 """bz2tpu_torch stands alone: no module of the port, and neither
 chip_smoke.py nor the port's tools/profile_compress.py,
 tools/time_dec_chain.py, tools/time_decode.py, tools/time_intake.py,
-tools/load_latency.py, tools/probe_dec_kernels.py and tests/torch_parallel_worker.py, imports bz2tpu or the JAX
+tools/load_latency.py, tools/probe_dec_kernels.py, tools/probe_intake_kernels.py and
+tests/torch_parallel_worker.py, imports bz2tpu or the JAX
 package's bench.py; importing them loads neither bz2tpu nor JAX (nor
 does installing a shipped build at import), a fresh copy builds its host C
 library under its own build/ directory, and each
@@ -43,7 +44,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bz2tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_compress.py", ROOT / "tools" / "time_dec_chain.py",
     ROOT / "tools" / "time_decode.py", ROOT / "tools" / "time_intake.py", ROOT / "tools" / "load_latency.py",
-    ROOT / "tools" / "probe_dec_kernels.py", ROOT / "tests" / "torch_parallel_worker.py"]
+    ROOT / "tools" / "probe_dec_kernels.py", ROOT / "tools" / "probe_intake_kernels.py",
+    ROOT / "tests" / "torch_parallel_worker.py"]
 JAX_SIDE = ("bz2tpu", "bench")  # the JAX package and its benchmark script
 
 
