@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from bz2tpu_torch.ops.bwt_cuda import MAX_SLOTS, rerank, sort_keys
+from bz2tpu_torch.utils.profiling import count, wait
 
 _I64 = torch.int64
 MAX_N = (1 << 21) - 1  # 3 fields of 21 bits fill a non-negative int64
@@ -111,6 +112,7 @@ def pair_keys(rank: torch.Tensor, k: torch.Tensor, lay: Layout, nb: int) -> tupl
 def _round(keys: torch.Tensor, hi_bit: int, slot_shift: int, lay: Layout, nb: int):
     """One sort and one re-rank of a batch's keys: (sorted keys, ranks,
     per-slot active counts)."""
+    count("bwt_rounds")
     keys = sort_keys(keys, nb, hi_bit)
     rank, active = rerank(keys, nb, slot_shift, lay.off.to(torch.int32))
     return keys, rank, active
@@ -128,7 +130,8 @@ def _sort_batch(blocks: torch.Tensor, ns: list[int]) -> torch.Tensor:
     keys, hi = round0_keys(blocks, lay, nb)
     keys, rank, active = _round(keys, hi, nb + 24, lay, nb)
     while True:
-        act = active.tolist()
+        with wait():
+            act = active.tolist()
         live = [s for s, b in enumerate(lay.ids) if k[b] < ns[b] and act[s] > 0]
         for s, b in enumerate(lay.ids):
             if s not in live:
@@ -161,7 +164,8 @@ def bwt_stage(blocks: torch.Tensor, ns: torch.Tensor) -> tuple[torch.Tensor, tor
     """
     B, cap = blocks.shape
     dev = blocks.device
-    ns_host = [int(n) for n in ns.tolist()]
+    with wait():
+        ns_host = [int(n) for n in ns.tolist()]
     for n in ns_host:
         if not 1 <= n <= min(cap, MAX_N):
             raise ValueError(f"block length {n} outside 1..min({cap}, 2^21 - 1)")

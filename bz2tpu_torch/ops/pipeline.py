@@ -20,6 +20,7 @@ from bz2tpu_torch.ops.emit import pack_blocks, pack_blocks_concat
 from bz2tpu_torch.ops.huffman import huffman_assign, max_selectors
 from bz2tpu_torch.ops.mtf import mtf_rle2_plan as mtf_plan_stage
 from bz2tpu_torch.ops.mtf import rle2_out
+from bz2tpu_torch.utils.profiling import span, wait
 
 __all__ = [
     "bwt_stage", "mtf_plan_stage", "emit_huff_pack_stage", "emit_huff_pack_concat_stage",
@@ -55,11 +56,27 @@ def _lap(clock: StageClock | None, name: str) -> None:
 def _emit_huff(plan, *, width: int, clock: StageClock | None):
     """RLE2 emission and Huffman planning at ``width`` (>= max n_sym)."""
     maxsel = max_selectors(width - 2)
-    sym = rle2_out(plan, width)
-    _lap(clock, "rle2_out")
-    hp = huffman_assign(sym, plan["n_sym"], plan["n_in_use"], maxsel)
-    _lap(clock, "huffman")
+    with span("bz2.rle2_out"):
+        sym = rle2_out(plan, width)
+        _lap(clock, "rle2_out")
+    with span("bz2.huffman"):
+        hp = huffman_assign(sym, plan["n_sym"], plan["n_in_use"], maxsel)
+        _lap(clock, "huffman")
     return sym, hp, maxsel
+
+
+def _bwt_mtf(blocks, ns, clock: StageClock | None):
+    """A batch's BWT and MTF/RLE2 plan, and its emission width max(n_sym)
+    read back: (orig_ptr, plan, width)."""
+    with span("bz2.bwt"):
+        last, orig_ptr = bwt_stage(blocks, ns)
+        _lap(clock, "bwt")
+    with span("bz2.mtf"):
+        plan = mtf_plan_stage(last, ns)
+        with wait():
+            width = int(plan["n_sym"].max())
+        _lap(clock, "mtf")
+    return orig_ptr, plan, width
 
 
 def emit_huff_pack_concat_stage(plan, orig_ptr, crcs, *, width: int, clock: StageClock | None = None):
@@ -67,12 +84,13 @@ def emit_huff_pack_concat_stage(plan, orig_ptr, crcs, *, width: int, clock: Stag
     the whole batch packs into one concatenated stream. Returns (words
     (B*Wb + 1,) int64, total_bits 0-dim int64, block_bits (B,))."""
     sym, hp, maxsel = _emit_huff(plan, width=width, clock=clock)
-    out = pack_blocks_concat(
-        sym, hp["selectors"], hp["lengths"], hp["codes"], crcs, orig_ptr,
-        plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
-        maxsel=maxsel,
-    )
-    _lap(clock, "pack")
+    with span("bz2.pack"):
+        out = pack_blocks_concat(
+            sym, hp["selectors"], hp["lengths"], hp["codes"], crcs, orig_ptr,
+            plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
+            maxsel=maxsel,
+        )
+        _lap(clock, "pack")
     return out
 
 
@@ -83,12 +101,13 @@ def emit_huff_pack_stage(plan, orig_ptr, crcs, *, width: int, clock: StageClock 
     meta (B, 6) int32: orig_ptr, n_sym, n_in_use, n_groups, n_selectors,
     total_bits."""
     sym, hp, maxsel = _emit_huff(plan, width=width, clock=clock)
-    words, total_bits = pack_blocks(
-        sym, hp["selectors"], hp["lengths"], hp["codes"], crcs, orig_ptr,
-        plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
-        maxsel=maxsel,
-    )
-    _lap(clock, "pack")
+    with span("bz2.pack"):
+        words, total_bits = pack_blocks(
+            sym, hp["selectors"], hp["lengths"], hp["codes"], crcs, orig_ptr,
+            plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
+            maxsel=maxsel,
+        )
+        _lap(clock, "pack")
     meta = torch.stack([t.to(torch.int32) for t in (
         orig_ptr, plan["n_sym"], plan["n_in_use"], hp["n_groups"], hp["n_selectors"], total_bits)], 1)
     return {"n_groups": hp["n_groups"], "n_selectors": hp["n_selectors"],
@@ -103,16 +122,13 @@ def encode_batch(blocks, ns, crcs, timings: dict | None = None):
     int64). With ``timings``, per-stage seconds accumulate under "bwt",
     "mtf", "rle2_out", "huffman" and "pack" (see StageClock).
     """
-    clock = None if timings is None else StageClock(timings, blocks.device)
-    last, orig_ptr = bwt_stage(blocks, ns)
-    _lap(clock, "bwt")
-    plan = mtf_plan_stage(last, ns)
-    width = int(plan["n_sym"].max())
-    _lap(clock, "mtf")
-    words, total_bits, _ = emit_huff_pack_concat_stage(
-        plan, orig_ptr, crcs, width=width, clock=clock
-    )
-    return words, total_bits
+    with span("bz2.encode"):
+        clock = None if timings is None else StageClock(timings, blocks.device)
+        orig_ptr, plan, width = _bwt_mtf(blocks, ns, clock)
+        words, total_bits, _ = emit_huff_pack_concat_stage(
+            plan, orig_ptr, crcs, width=width, clock=clock
+        )
+        return words, total_bits
 
 
 def encode_blocks(blocks, ns, crcs, timings: dict | None = None):
@@ -128,12 +144,9 @@ def encode_blocks(blocks, ns, crcs, timings: dict | None = None):
     capacity, so rows hold fewer zero words past the bits than JAX's.
     ``timings`` as in encode_batch.
     """
-    clock = None if timings is None else StageClock(timings, blocks.device)
-    last, orig_ptr = bwt_stage(blocks, ns)
-    _lap(clock, "bwt")
-    plan = mtf_plan_stage(last, ns)
-    width = int(plan["n_sym"].max())
-    _lap(clock, "mtf")
-    out = emit_huff_pack_stage(plan, orig_ptr, crcs, width=width, clock=clock)
-    out.update(orig_ptr=orig_ptr, used=plan["used"], n_sym=plan["n_sym"], n_in_use=plan["n_in_use"])
-    return out
+    with span("bz2.encode"):
+        clock = None if timings is None else StageClock(timings, blocks.device)
+        orig_ptr, plan, width = _bwt_mtf(blocks, ns, clock)
+        out = emit_huff_pack_stage(plan, orig_ptr, crcs, width=width, clock=clock)
+        out.update(orig_ptr=orig_ptr, used=plan["used"], n_sym=plan["n_sym"], n_in_use=plan["n_in_use"])
+        return out

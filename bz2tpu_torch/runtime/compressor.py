@@ -29,6 +29,7 @@ from bz2tpu_torch.oracle.encoder import Rle1Block, rle1_split
 from bz2tpu_torch.ops.intake import chunk_capacity, device_intake
 from bz2tpu_torch.ops.pipeline import StageClock, encode_batch, encode_blocks
 from bz2tpu_torch.utils.device import resolve_device
+from bz2tpu_torch.utils.profiling import count, span, wait
 
 DEFAULT_BATCH = 8
 
@@ -80,34 +81,39 @@ def _stream_header(level: int) -> Part:
 
 def _encode(blocks, ns, crcs, timings: dict | None = None) -> Part:
     """One batch through the device pipeline, back in one copy."""
+    count("batches")
     words, total_bits = encode_batch(blocks, ns, crcs, timings=timings)
-    total = int(total_bits)
+    with wait():
+        total = int(total_bits)
     nw = (total + 31) // 32
-    return words[:nw].cpu().numpy().astype(">u4").view(np.uint8), total
+    with span("bz2.fetch"):
+        return words[:nw].cpu().numpy().astype(">u4").view(np.uint8), total
 
 
 def _finish(parts: list[Part], block_crcs: list[int]) -> bytes:
     """Append the end marker and stream CRC, and stitch."""
-    tail = BitWriter()
-    tail.write_bits(48, C.STREAM_END_MARKER)
-    tail.write_bits(32, stream_crc(block_crcs))
-    packed, _ = concat_bitstreams([*parts, _bits(tail)])
-    return packed.tobytes()
+    with span("bz2.stitch"):
+        tail = BitWriter()
+        tail.write_bits(48, C.STREAM_END_MARKER)
+        tail.write_bits(32, stream_crc(block_crcs))
+        packed, _ = concat_bitstreams([*parts, _bits(tail)])
+        return packed.tobytes()
 
 
 def _batch_tensors(chunk, device, n_rows: int | None = None):
     """(B, max n) uint8 blocks, (B,) int32 ns and (B,) int64 CRCs on device.
     B is ``n_rows`` where given: rows past the chunk are padding, one zero
     byte each (ns = 1, CRC 0)."""
-    n_rows = n_rows or len(chunk)
-    width = max(blk.data.size for blk in chunk)
-    buf = np.zeros((n_rows, width), dtype=np.uint8)
-    ns = np.ones(n_rows, dtype=np.int32)
-    crcs = np.zeros(n_rows, dtype=np.int64)
-    for i, blk in enumerate(chunk):
-        buf[i, : blk.data.size] = blk.data
-        ns[i], crcs[i] = blk.data.size, blk.crc
-    return tuple(torch.from_numpy(a).to(device) for a in (buf, ns, crcs))
+    with span("bz2.upload"):
+        n_rows = n_rows or len(chunk)
+        width = max(blk.data.size for blk in chunk)
+        buf = np.zeros((n_rows, width), dtype=np.uint8)
+        ns = np.ones(n_rows, dtype=np.int32)
+        crcs = np.zeros(n_rows, dtype=np.int64)
+        for i, blk in enumerate(chunk):
+            buf[i, : blk.data.size] = blk.data
+            ns[i], crcs[i] = blk.data.size, blk.crc
+        return tuple(torch.from_numpy(a).to(device) for a in (buf, ns, crcs))
 
 
 def _mesh_batch(n_blocks: int, parallel: int | None) -> int:
@@ -155,6 +161,7 @@ def _encode_batches(blocks, batch: int, device, timings: dict | None = None):
         dev = mesh.device
     for base in range(0, len(blocks), batch):
         chunk = blocks[base : base + batch]
+        count("batches")
         if mesh is None:
             out = encode_blocks(*_batch_tensors(chunk, dev), timings=timings)
             live = len(chunk)
@@ -204,7 +211,8 @@ def compress(
     dev = resolve_device(device)
     arr = _as_array(data)
     _check_level(level)
-    blocks = split_blocks(arr, level)
+    with span("bz2.split"):
+        blocks = split_blocks(arr, level)
     parts = [_stream_header(level)]
     if _DEVICE_STITCH:
         batch = parallel or DEFAULT_BATCH

@@ -50,6 +50,7 @@ from bz2tpu_torch.ops.mtf_dec import CHUNK, mtf_rle2_decode
 from bz2tpu_torch.ops.pipeline import StageClock, _lap
 from bz2tpu_torch.runtime.decompressor import decompress as host_decompress
 from bz2tpu_torch.utils.device import resolve_device
+from bz2tpu_torch.utils.profiling import count, span
 
 BUCKET_W = 8  # blocks per device batch, as the JAX form's default
 
@@ -135,11 +136,14 @@ def parse_blocks(stream: bytes) -> tuple[list[dict], list[int]] | None:
     bit-range cap, and the end markers; None where the stream must go to the
     host decoder."""
     if not native.HAVE_NATIVE:
+        count("decode_fallbacks.no_native")
         return None
     if len(stream) < 4 or stream[:3] != b"BZh" or not (ord("1") <= stream[3] <= ord("9")):
+        count("decode_fallbacks.header")
         return None  # the host path raises the proper error
     headers, ends = native.scan_blocks(stream)
     if not headers or not ends or headers[0] != 32:
+        count("decode_fallbacks.scan")
         return None
     # Single-member streams only: the final end marker must follow the
     # last header; anything else goes to the host path.
@@ -149,9 +153,11 @@ def parse_blocks(stream: bytes) -> tuple[list[dict], list[int]] | None:
         try:
             hdr = _parse_block_header(stream, start)
         except (Bz2FormatError, EOFError):
+            count("decode_fallbacks.block")
             return None
         n_bits = end - hdr["data_start_bit"]
         if n_bits <= 0:
+            count("decode_fallbacks.block")
             return None
         hdr["end_bit"] = end
         hdr["n_bits_cap"] = _pow2_at_least(n_bits, 1 << 12)
@@ -243,6 +249,7 @@ def _decode_batch(
     ok = hd["ok"] & md["ok"] & (bt["orig_ptr"] < md["n_bwt"])
     del hd, syms
     if not bool(ok.all()):
+        count("decode_fallbacks.validate")
         return None
     _lap(clock, "mtf")
     decoded = ibwt(md["bwt"], md["n_bwt"], bt["orig_ptr"]).cpu().numpy()
@@ -267,7 +274,8 @@ def _decompress_device_inner(
     "segments", "chunk_perms" (D4), "chunk_scan" and "expand".
     """
     clock = None if timings is None else StageClock(timings, device)
-    plan = parse_blocks(stream)
+    with span("bz2.parse"):
+        plan = parse_blocks(stream)
     _lap(clock, "parse")
     if plan is None:
         return None
@@ -294,6 +302,7 @@ def _decompress_device_inner(
     # The stream CRC sits 48 bits past the final end marker.
     pos = ends[-1] + 48
     if pos + 32 > len(stream) * 8:
+        count("decode_fallbacks.stream_crc")
         return None
     r = BitReader(stream)
     r._pos = pos
@@ -301,6 +310,7 @@ def _decompress_device_inner(
     if verify_crc and stored != s_crc:
         # Perhaps several members (one CRC each): the host path decides
         # whether this is an error or a member boundary.
+        count("decode_fallbacks.stream_crc")
         return None
     _lap(clock, "rle1_crc")
     return b"".join(pieces)

@@ -5,7 +5,8 @@ include/utilities.hpp:54-62) and a console device banner
 (include/opencl.hpp:87-107); observability beyond that is absent. Here
 every run can report structured metrics: throughput, ratio, blocks,
 per-stage seconds — the SURVEY section 5 "metrics" subsystem. The port's
-copy of bz2tpu/utils/metrics.py, verbatim.
+copy of bz2tpu/utils/metrics.py, verbatim, less its weak-scaling table,
+which only bz2tpu's bench.py reads.
 """
 
 from __future__ import annotations
@@ -77,15 +78,3 @@ class RunMetrics:
     def to_json(self) -> str:
         return json.dumps(self.to_dict())
 
-
-def scaling_efficiency(throughputs: dict) -> dict:
-    """Weak-scaling efficiency table: eff(n) = T_n / (n * T_1).
-
-    `throughputs` maps device count -> aggregate throughput. This is the
-    BASELINE scaling metric (>=80% on a real multi-host slice); bench.py
-    emits it for the virtual CPU mesh as plumbing validation.
-    """
-    if 1 not in throughputs or not throughputs[1]:
-        return {}
-    base = throughputs[1]
-    return {n: t / (n * base) for n, t in sorted(throughputs.items())}

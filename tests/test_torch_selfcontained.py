@@ -332,8 +332,6 @@ def test_metrics_match():
         m.stage_seconds["stitch"] = 0.0456  # the clock's reading differs between the two
         runs.append((m.to_dict(), m.to_json(), m.ratio, m.mb_per_s))
     assert runs[0] == runs[1]
-    for table in ({1: 2.0, 2: 3.6, 4: 6.4}, {2: 5.0}, {1: 0.0, 2: 1.0}, {}):
-        assert metrics.scaling_efficiency(table) == jax_metrics.scaling_efficiency(table)
     c = metrics.Clock()
     assert c.elapsed() >= 0
 
