@@ -1,5 +1,6 @@
-"""The port's host C core (a copy of bz2tpu/native/_bz2dec.c): stream and
-block decoder, block scan, RLE1 splitter, inverse RLE1 and CRC32.
+"""The port's host C core (grown from bz2tpu/native/_bz2dec.c): stream and
+block decoder, block scan, block header parse, RLE1 splitter, inverse RLE1
+and CRC32.
 
 At first import, ``_bz2dec.c`` compiles with ``cc`` (~1 s) into the build
 cache beside the CUDA library of ``_build.py`` (``build/bz2tpu_torch/`` at
@@ -85,6 +86,7 @@ try:  # pragma: no cover - exercised via the public wrappers
     crc32 = _impl.crc32
     rle1_split = _impl.rle1_split
     scan_blocks = _impl.scan_blocks
+    parse_block_header = _impl.parse_block_header
     decode_block_at = _impl.decode_block_at
     inverse_rle1 = _impl.inverse_rle1
     CrcError = _impl.CrcError
@@ -94,6 +96,7 @@ except (OSError, ImportError, subprocess.SubprocessError):  # no compiler, or th
     crc32 = None
     rle1_split = None
     scan_blocks = None
+    parse_block_header = None
     decode_block_at = None
     inverse_rle1 = None
     CrcError = None

@@ -12,6 +12,8 @@
  * Exposed to Python via the CPython C API (no pybind11 in this image):
  *   decode_stream(data: bytes, verify_crc: bool = True) -> bytes
  *   crc32(data: bytes) -> int            (CRC-32/BZIP2, finalized)
+ * and the device decode's host steps: scan_blocks (the block and end
+ * markers), parse_block_header (one block's header) and inverse_rle1.
  */
 
 #define PY_SSIZE_T_CLEAN
@@ -204,55 +206,65 @@ typedef struct {
     int crc_mismatch;  /* raise CRC-specific error */
 } DecErr;
 
-static int decode_one_block(
-    BitReader *br, int max_block, int verify_crc,
-    uint32_t *stream_crc, Vec *out, DecErr *e,
-    /* scratch, reused across blocks: */
-    uint8_t *bwt, int32_t *tvec)
-{
-    uint32_t stored_crc, randomised, orig_ptr;
-    if (br_read(br, 32, &stored_crc) || br_read(br, 1, &randomised) ||
-        br_read(br, 24, &orig_ptr)) { e->err = "truncated block header"; return -1; }
+/* One block header, from the stored CRC to the first bit of the Huffman
+   data: what read_block_header gives both the host decoder and the device
+   path (parse_block_header below). */
+typedef struct {
+    uint32_t crc, randomised, orig_ptr;
+    int n_in_use;                  /* used_bytes[0 .. n_in_use) */
+    uint8_t used_bytes[256];
+    int alpha;                     /* n_in_use + 2 */
+    uint32_t n_groups, n_selectors;
+    uint8_t *selectors;            /* n_selectors of them, malloc'd: the caller frees */
+    uint8_t lens[MAX_GROUPS][MAX_ALPHA];
+} BlockHeader;
+
+/* Read the header that follows a block's 48-bit marker. On an error
+   e->err is set, h->selectors is NULL, and the fields read before the
+   error hold their values (h->randomised from the 33rd bit on). */
+static int read_block_header(BitReader *br, BlockHeader *h, DecErr *e) {
+    h->randomised = 0;
+    h->selectors = NULL;
+    if (br_read(br, 32, &h->crc) || br_read(br, 1, &h->randomised) ||
+        br_read(br, 24, &h->orig_ptr)) { e->err = "truncated block header"; return -1; }
 
     /* symbol map */
     uint32_t ranges;
-    uint8_t used_bytes[256];
-    int n_in_use = 0;
+    h->n_in_use = 0;
     if (br_read(br, 16, &ranges)) { e->err = "truncated symbol map"; return -1; }
     for (int i = 0; i < 16; i++) {
         if (ranges & (0x8000u >> i)) {
             uint32_t bits;
             if (br_read(br, 16, &bits)) { e->err = "truncated symbol map"; return -1; }
             for (int j = 0; j < 16; j++)
-                if (bits & (0x8000u >> j)) used_bytes[n_in_use++] = (uint8_t)(16 * i + j);
+                if (bits & (0x8000u >> j)) h->used_bytes[h->n_in_use++] = (uint8_t)(16 * i + j);
         }
     }
-    if (n_in_use == 0) { e->err = "empty symbol map"; return -1; }
-    int alpha = n_in_use + 2;
+    if (h->n_in_use == 0) { e->err = "empty symbol map"; return -1; }
+    h->alpha = h->n_in_use + 2;
 
-    uint32_t n_groups, n_selectors;
-    if (br_read(br, 3, &n_groups) || br_read(br, 15, &n_selectors)) {
+    if (br_read(br, 3, &h->n_groups) || br_read(br, 15, &h->n_selectors)) {
         e->err = "truncated table header"; return -1;
     }
-    if (n_groups < 2 || n_groups > MAX_GROUPS) { e->err = "bad table count"; return -1; }
+    if (h->n_groups < 2 || h->n_groups > MAX_GROUPS) { e->err = "bad table count"; return -1; }
     /* 18002 = 2 + 900000/50, the standard-scale cap (the reference enforces
        its downscaled analog, include/BlockDecompressor.hpp:158-161) */
-    if (n_selectors < 1 || n_selectors > MAX_SELECTORS) { e->err = "bad selector count"; return -1; }
+    if (h->n_selectors < 1 || h->n_selectors > MAX_SELECTORS) { e->err = "bad selector count"; return -1; }
 
     /* selectors: unary MTF over table list */
-    uint8_t *selectors = (uint8_t *)malloc(n_selectors);
+    uint8_t *selectors = (uint8_t *)malloc(h->n_selectors);
     if (!selectors) { e->err = "out of memory"; return -1; }
     {
         uint8_t mtf[MAX_GROUPS];
-        for (uint32_t i = 0; i < n_groups; i++) mtf[i] = (uint8_t)i;
-        for (uint32_t s = 0; s < n_selectors; s++) {
+        for (uint32_t i = 0; i < h->n_groups; i++) mtf[i] = (uint8_t)i;
+        for (uint32_t s = 0; s < h->n_selectors; s++) {
             uint32_t j = 0, bit;
             for (;;) {
                 if (br_read(br, 1, &bit)) { free(selectors); e->err = "truncated selectors"; return -1; }
                 if (!bit) break;
                 j++;
             }
-            if (j >= n_groups) { free(selectors); e->err = "selector out of range"; return -1; }
+            if (j >= h->n_groups) { free(selectors); e->err = "selector out of range"; return -1; }
             uint8_t v = mtf[j];
             memmove(mtf + 1, mtf, j);
             mtf[0] = v;
@@ -260,13 +272,11 @@ static int decode_one_block(
         }
     }
 
-    /* delta-coded code lengths + canonical tables */
-    HuffTable tables[MAX_GROUPS];
-    for (uint32_t t = 0; t < n_groups; t++) {
-        uint8_t lens[MAX_ALPHA];
+    /* delta-coded code lengths */
+    for (uint32_t t = 0; t < h->n_groups; t++) {
         uint32_t cur;
         if (br_read(br, 5, &cur)) { free(selectors); e->err = "truncated tables"; return -1; }
-        for (int v = 0; v < alpha; v++) {
+        for (int v = 0; v < h->alpha; v++) {
             for (;;) {
                 uint32_t more;
                 if (br_read(br, 1, &more)) { free(selectors); e->err = "truncated tables"; return -1; }
@@ -276,16 +286,37 @@ static int decode_one_block(
                 cur += dec ? (uint32_t)-1 : 1u;
             }
             if (cur < 1 || cur > MAX_ACCEPT_LEN) { free(selectors); e->err = "code length out of range"; return -1; }
-            lens[v] = (uint8_t)cur;
+            h->lens[t][v] = (uint8_t)cur;
         }
-        const char *err = build_table(lens, alpha, &tables[t]);
+    }
+    h->selectors = selectors;
+    return 0;
+}
+
+static int decode_one_block(
+    BitReader *br, int max_block, int verify_crc,
+    uint32_t *stream_crc, Vec *out, DecErr *e,
+    /* scratch, reused across blocks: */
+    uint8_t *bwt, int32_t *tvec)
+{
+    BlockHeader h;
+    if (read_block_header(br, &h, e)) return -1;
+    uint32_t stored_crc = h.crc, randomised = h.randomised, orig_ptr = h.orig_ptr;
+    uint32_t n_selectors = h.n_selectors;
+    uint8_t *selectors = h.selectors;
+    int alpha = h.alpha;
+
+    /* canonical tables */
+    HuffTable tables[MAX_GROUPS];
+    for (uint32_t t = 0; t < h.n_groups; t++) {
+        const char *err = build_table(h.lens[t], alpha, &tables[t]);
         if (err) { free(selectors); e->err = err; return -1; }
     }
 
     /* Huffman data -> RUNA/RUNB runs -> inverse MTF -> BWT last column */
     int eob = alpha - 1;
     uint8_t mtf_list[256];
-    memcpy(mtf_list, used_bytes, (size_t)n_in_use);
+    memcpy(mtf_list, h.used_bytes, (size_t)h.n_in_use);
     int n_bwt = 0;
     int64_t run = 0;
     int run_bit = 0;
@@ -516,11 +547,41 @@ fail:
 /* exactly and falls back to sequential decode on any mismatch (a      */
 /* false positive is a 2^-48 event per bit).                           */
 
+/* The search is byte-wise. A marker that starts at bit s (0-7) of byte i
+   fills bytes i+1 and i+2 whatever s is, so scan_filter, indexed by those
+   two bytes, holds bit 8 m + s where marker m (0: block, 1: end) starting
+   at bit s of byte i would give them; only where it is not zero are the
+   alignments it names compared in full (on compressed data, about one
+   byte in 4,096). The lists come out as a bit-serial scan gives them:
+   every position whose 48 bits equal a marker, overlaps included, in
+   ascending order. */
+
+static uint16_t scan_filter[1 << 16];
+
+static void scan_init_filter(void) {
+    static const uint64_t markers[2] = {BLOCK_HEADER, STREAM_END};
+    for (int m = 0; m < 2; m++)
+        for (int s = 0; s < 8; s++) {
+            uint64_t w = markers[m] << (8 - s); /* bytes i .. i+6 as 56 bits */
+            scan_filter[(w >> 32) & 0xFFFF] |= (uint16_t)(1u << (8 * m + s));
+        }
+}
+
+static int push_offset(size_t **v, size_t *n, size_t *cap, size_t x) {
+    if (*n == *cap) {
+        size_t *nv = (size_t *)realloc(*v, (*cap *= 2) * sizeof(size_t));
+        if (!nv) return -1;
+        *v = nv;
+    }
+    (*v)[(*n)++] = x;
+    return 0;
+}
+
 static PyObject *py_scan_blocks(PyObject *self, PyObject *args) {
     Py_buffer view;
     if (!PyArg_ParseTuple(args, "y*", &view)) return NULL;
     const uint8_t *d = (const uint8_t *)view.buf;
-    size_t nbits = (size_t)view.len * 8;
+    size_t n = (size_t)view.len, nbits = n * 8;
     size_t cap_h = 64, n_h = 0, cap_e = 8, n_e = 0;
     size_t *hs = (size_t *)malloc(cap_h * sizeof(size_t));
     size_t *es = (size_t *)malloc(cap_e * sizeof(size_t));
@@ -528,24 +589,20 @@ static PyObject *py_scan_blocks(PyObject *self, PyObject *args) {
     if (!hs || !es) oom = 1;
     if (!oom) {
         Py_BEGIN_ALLOW_THREADS
-        uint64_t win = 0;
-        for (size_t i = 0; i < nbits && !oom; i++) {
-            win = ((win << 1) | ((d[i >> 3] >> (7 - (i & 7))) & 1)) & 0xFFFFFFFFFFFFULL;
-            if (i < 47) continue;
-            if (win == BLOCK_HEADER) {
-                if (n_h == cap_h) {
-                    size_t *nh = (size_t *)realloc(hs, (cap_h *= 2) * sizeof(size_t));
-                    if (!nh) { oom = 1; break; }
-                    hs = nh;
+        for (size_t i = 0; i + 6 <= n && !oom; i++) {
+            unsigned hit = scan_filter[((unsigned)d[i + 1] << 8) | d[i + 2]];
+            if (!hit) continue;
+            uint64_t w = 0;
+            for (size_t k = i; k < i + 7; k++) w = (w << 8) | (k < n ? d[k] : 0);
+            for (int s = 0; s < 8; s++) {
+                size_t p = 8 * i + (size_t)s;
+                if (p + 48 > nbits) break;
+                uint64_t win = (w >> (8 - s)) & 0xFFFFFFFFFFFFULL;
+                if (((hit >> s) & 1) && win == BLOCK_HEADER) {
+                    if (push_offset(&hs, &n_h, &cap_h, p)) { oom = 1; break; }
+                } else if (((hit >> (8 + s)) & 1) && win == STREAM_END) {
+                    if (push_offset(&es, &n_e, &cap_e, p)) { oom = 1; break; }
                 }
-                hs[n_h++] = i - 47;
-            } else if (win == STREAM_END) {
-                if (n_e == cap_e) {
-                    size_t *ne = (size_t *)realloc(es, (cap_e *= 2) * sizeof(size_t));
-                    if (!ne) { oom = 1; break; }
-                    es = ne;
-                }
-                es[n_e++] = i - 47;
             }
         }
         Py_END_ALLOW_THREADS
@@ -559,6 +616,58 @@ static PyObject *py_scan_blocks(PyObject *self, PyObject *args) {
     for (size_t k = 0; k < n_e; k++) PyList_SET_ITEM(ends, (Py_ssize_t)k, PyLong_FromSize_t(es[k]));
     free(hs); free(es);
     return Py_BuildValue("(NN)", headers, ends);
+}
+
+/* The device path's header parse: the block at bit_offset (its marker
+   included) through read_block_header, with the GIL released. Returns
+   (crc, randomised, orig_ptr, used_bytes, selectors, lengths,
+   data_start_bit): used_bytes and selectors as bytes, lengths as
+   n_groups rows of alpha bytes. A randomised block returns its CRC and
+   bit alone, as (crc, 1, None, None, None, None, None), whatever follows
+   the bit: the device path hands such a block to the host decoder. A
+   header cut short raises EOFError, any other fault ValueError. */
+static PyObject *py_parse_block_header(PyObject *self, PyObject *args) {
+    Py_buffer view;
+    Py_ssize_t bit_offset;
+    if (!PyArg_ParseTuple(args, "y*n", &view, &bit_offset)) return NULL;
+    if (bit_offset < 0) {
+        PyBuffer_Release(&view);
+        PyErr_SetString(PyExc_ValueError, "negative bit offset");
+        return NULL;
+    }
+    BitReader br = {(const uint8_t *)view.buf, (size_t)view.len, (size_t)bit_offset};
+    BlockHeader h;
+    h.randomised = 0;
+    h.selectors = NULL;
+    DecErr e = {NULL, 0};
+    Py_BEGIN_ALLOW_THREADS
+    uint64_t marker;
+    if (br_read48(&br, &marker)) e.err = "truncated block marker";
+    else if (marker != BLOCK_HEADER) e.err = "bad block marker";
+    else read_block_header(&br, &h, &e);
+    Py_END_ALLOW_THREADS
+    PyBuffer_Release(&view);
+    if (h.randomised) {
+        free(h.selectors);
+        return Py_BuildValue("(IiOOOOO)", (unsigned int)h.crc, 1,
+                             Py_None, Py_None, Py_None, Py_None, Py_None);
+    }
+    if (e.err) {
+        if (strcmp(e.err, "out of memory") == 0) return PyErr_NoMemory();
+        PyErr_SetString(strncmp(e.err, "truncated", 9) == 0 ? PyExc_EOFError : PyExc_ValueError, e.err);
+        return NULL;
+    }
+    PyObject *lengths = PyBytes_FromStringAndSize(NULL, (Py_ssize_t)h.n_groups * h.alpha);
+    if (!lengths) { free(h.selectors); return NULL; }
+    for (uint32_t t = 0; t < h.n_groups; t++)
+        memcpy(PyBytes_AS_STRING(lengths) + (size_t)t * (size_t)h.alpha, h.lens[t], (size_t)h.alpha);
+    PyObject *res = Py_BuildValue(
+        "(IiIy#y#Nn)", (unsigned int)h.crc, 0, (unsigned int)h.orig_ptr,
+        (const char *)h.used_bytes, (Py_ssize_t)h.n_in_use,
+        (const char *)h.selectors, (Py_ssize_t)h.n_selectors,
+        lengths, (Py_ssize_t)br.pos);
+    free(h.selectors);
+    return res;
 }
 
 static PyObject *py_decode_block_at(PyObject *self, PyObject *args) {
@@ -745,7 +854,10 @@ static PyMethodDef methods[] = {
     {"rle1_split", py_rle1_split, METH_VARARGS,
      "RLE1-encode and split into blocks: [(block_bytes, raw_len, crc), ...]."},
     {"scan_blocks", py_scan_blocks, METH_VARARGS,
-     "Bit-scan for block/end markers: ([header_bit_offsets], [end_bit_offsets])."},
+     "Scan for block/end markers: ([header_bit_offsets], [end_bit_offsets])."},
+    {"parse_block_header", py_parse_block_header, METH_VARARGS,
+     "parse_block_header(data, bit_offset) -> (crc, randomised, orig_ptr, used_bytes, selectors, "
+     "lengths, data_start_bit)."},
     {"decode_block_at", py_decode_block_at, METH_VARARGS,
      "decode_block_at(data, bit_offset, level, verify) -> (bytes, crc, end_bit)."},
     {"inverse_rle1", py_inverse_rle1, METH_VARARGS,
@@ -759,6 +871,7 @@ static struct PyModuleDef moduledef = {
 
 PyMODINIT_FUNC PyInit__bz2dec(void) {
     crc_init_table();
+    scan_init_filter();
     PyObject *m = PyModule_Create(&moduledef);
     if (!m) return NULL;
     CrcError = PyErr_NewException("_bz2dec.CrcError", PyExc_ValueError, NULL);

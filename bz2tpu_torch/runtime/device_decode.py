@@ -2,9 +2,9 @@
 
 Port of bz2tpu/runtime/device_decode.py:
 
-  host    the native bit scan finds the block boundaries, and each
-          block's small header (symbol map, selectors, code tables) is
-          parsed with the BitReader;
+  host    the C core (native/_bz2dec.c) finds the block boundaries with a
+          byte-wise marker search and parses each block's small header
+          (symbol map, selectors, code lengths) in one pass;
   device  per batch of up to 8 same-shape blocks: the jump-map Huffman
           decode (ops/huffman_dec.py, with the dec_chain and dec_symbols
           kernels), run expansion + inverse MTF (ops/mtf_dec.py, with the
@@ -56,39 +56,27 @@ BUCKET_W = 8  # blocks per device batch, as the JAX form's default
 
 
 def _parse_block_header(stream: bytes, bit_off: int) -> dict:
-    """Host parse of one block header starting at its 48-bit marker (a
-    copy of bz2tpu.runtime.device_decode._parse_block_header)."""
-    r = BitReader(stream)
-    r._pos = bit_off
-    if r.read_bits(48) != C.BLOCK_HEADER_MARKER:
-        raise Bz2FormatError("bad block marker")
-    crc = r.read_bits(32)
-    if r.read_bit():
+    """One block header starting at its 48-bit marker, parsed by the C core
+    (native.parse_block_header); the fields and errors of
+    bz2tpu.runtime.device_decode._parse_block_header."""
+    try:
+        crc, randomised, orig_ptr, used, sel, lens, data_start = native.parse_block_header(stream, bit_off)
+    except ValueError as exc:
+        raise Bz2FormatError(str(exc)) from None
+    if randomised:
         # Legacy randomised blocks go to the host decoders, which support them.
         raise Bz2FormatError("randomised block: host path")
-    orig_ptr = r.read_bits(24)
-    used = od._read_symbol_map(r)
-    used_bytes = np.flatnonzero(used)
-    if used_bytes.size == 0:
-        raise Bz2FormatError("empty symbol map")
+    used_bytes = np.frombuffer(used, np.uint8).astype(np.int64)
     alpha = used_bytes.size + 2
-    n_groups = r.read_bits(3)
-    if not C.HUFFMAN_MIN_TABLES <= n_groups <= C.HUFFMAN_MAX_TABLES:
-        raise Bz2FormatError(f"bad table count {n_groups}")
-    n_sel = r.read_bits(15)
-    if not 1 <= n_sel <= C.HUFFMAN_MAX_SELECTORS:
-        raise Bz2FormatError(f"bad selector count {n_sel}")
-    selectors = od._decode_selectors(r, n_groups, n_sel)
-    lengths = od._read_tables(r, n_groups, alpha)
-    tables = [od.build_decode_tables(lengths[t]) for t in range(n_groups)]
+    lengths = np.frombuffer(lens, np.uint8).reshape(-1, alpha)
     return {
         "crc": crc,
         "orig_ptr": orig_ptr,
         "used_bytes": used_bytes,
         "alpha": alpha,
-        "selectors": np.asarray(selectors, dtype=np.int32),
-        "tables": tables,
-        "data_start_bit": r.bit_position,
+        "selectors": np.frombuffer(sel, np.uint8).astype(np.int32),
+        "tables": [od.build_decode_tables(row) for row in lengths],
+        "data_start_bit": data_start,
     }
 
 
@@ -162,6 +150,7 @@ def parse_blocks(stream: bytes) -> tuple[list[dict], list[int]] | None:
         hdr["end_bit"] = end
         hdr["n_bits_cap"] = _pow2_at_least(n_bits, 1 << 12)
         parsed.append(hdr)
+    count("decode_headers", len(parsed))
     return parsed, ends
 
 

@@ -33,6 +33,8 @@ launches. Every counter name is in ``COUNTER_NAMES``:
   batches               compress batches through the card
   bwt_rounds            BWT sort-and-rerank rounds (round 0 and each doubling)
   host_syncs            blocking reads of a value from the card (bz2.wait)
+  decode_headers        block headers parsed by the C core for streams the
+                        card goes on to decode (parse_blocks)
   decode_fallbacks.*    streams decompress_device handed to the host decoder,
                         by reason: no_native (no native scanner built),
                         header (no BZh magic), scan (the block scan found no
@@ -58,7 +60,9 @@ SPANS = (
     "bz2.pack", "bz2.wait", "bz2.fetch", "bz2.stitch", "bz2.parse",
 )
 FALLBACK_REASONS = ("no_native", "header", "scan", "block", "validate", "stream_crc")
-COUNTER_NAMES = ("batches", "bwt_rounds", "host_syncs", *(f"decode_fallbacks.{r}" for r in FALLBACK_REASONS))
+COUNTER_NAMES = (
+    "batches", "bwt_rounds", "host_syncs", "decode_headers", *(f"decode_fallbacks.{r}" for r in FALLBACK_REASONS)
+)
 COUNTERS: dict[str, int] = dict.fromkeys(COUNTER_NAMES, 0)
 
 _OFF = contextlib.nullcontext()

@@ -24,8 +24,12 @@ from bz2tpu.oracle.encoder import mtf_rle2_encode as oracle_mtf  # noqa: E402
 from bz2tpu.runtime import device_decode as jax_device_decode  # noqa: E402
 from bz2tpu.oracle import decoder as jax_decoder  # noqa: E402
 from bz2tpu_torch.oracle import decoder as port_decoder  # noqa: E402
+from bz2tpu_torch import native as port_native  # noqa: E402
 from bz2tpu_torch.ops import dec_cuda, huffman_dec, ibwt, mtf_dec  # noqa: E402
+from bz2tpu_torch.format.bitio import BitReader  # noqa: E402
 from bz2tpu_torch.runtime import device_decode  # noqa: E402
+from bz2tpu_torch.runtime.decompressor import decompress as port_host_decompress  # noqa: E402
+from bz2tpu_torch.utils import profiling  # noqa: E402
 
 from conftest import make_corpus  # noqa: E402
 from test_randomised import craft_randomised_stream  # noqa: E402
@@ -139,6 +143,10 @@ def test_chunk_scan_composes_in_order(rng):
 
 # --- Huffman symbol decode -----------------------------------------------------
 
+# _parse_block_header reads through the port's C core; without it the device
+# path hands every stream to the host decoder, and there is no parse to test.
+needs_port_native = pytest.mark.skipif(not port_native.HAVE_NATIVE, reason="the port's extension not built")
+
 
 def _blocks(comp):
     headers, ends = native.scan_blocks(comp)
@@ -151,6 +159,7 @@ def _blocks(comp):
     return out
 
 
+@needs_port_native
 def test_parse_block_header_matches_jax(rng):
     comp = stdlib_bz2.compress(make_corpus(rng, "text", 150_000), 1)
     headers, _ = native.scan_blocks(comp)
@@ -164,6 +173,142 @@ def test_parse_block_header_matches_jax(rng):
         np.testing.assert_array_equal(got["used_bytes"], want["used_bytes"])
 
 
+# The header parse in the C core (native.parse_block_header) against the
+# JAX form's BitReader parse: good streams field by field, and streams made
+# bad at one field of their first block's header, which both forms refuse
+# alike and which parse_blocks leaves to the host decoder.
+
+END_MARKER_BITS = [int(b) for b in f"{0x177245385090:048b}"]
+
+
+def _first_header_fields(bits: np.ndarray) -> dict:
+    """Bit offsets of the first block's header fields (its marker at 32)."""
+    r = BitReader(np.packbits(bits))
+    r._pos = 32 + 48 + 32 + 1 + 24
+    port_decoder._read_symbol_map(r)
+    at = {"groups": r.bit_position}
+    n_groups = r.read_bits(3)
+    n_sel = r.read_bits(15)
+    at["selectors"] = r.bit_position
+    port_decoder._decode_selectors(r, n_groups, n_sel)
+    at["tables"] = r.bit_position
+    at["n_groups"], at["n_sel"], at["first_length"] = n_groups, n_sel, r.read_bits(5)
+    return at
+
+
+def _header_case(case: str) -> bytes:
+    rng = np.random.default_rng(1701)
+    kind, _, level = case.partition("-")
+    if kind == "port":
+        import bz2tpu_torch
+
+        return bz2tpu_torch.compress(make_corpus(rng, "text", 230_000), level=int(level), device="cpu")
+    if kind == "stdlib":
+        return stdlib_bz2.compress(make_corpus(rng, "text", 250_000 if level == "9" else 230_000), int(level))
+    bits = np.unpackbits(np.frombuffer(stdlib_bz2.compress(make_corpus(rng, "text", 250_000), 9), np.uint8))
+    at = _first_header_fields(bits)
+    assert at["n_groups"] == 6 and at["n_sel"] > 100
+
+    def put(pos, n, value):
+        bits[pos : pos + n] = [(value >> (n - 1 - k)) & 1 for k in range(n)]
+
+    def insert(pos, seq):
+        return np.concatenate([bits[:pos], np.array(seq, np.uint8), bits[pos:]])
+
+    if case == "truncated":  # the stream ends inside the selectors, behind an end marker
+        bits = np.concatenate([bits[: at["selectors"] + 5], np.array(END_MARKER_BITS + [0] * 32, np.uint8)])
+    elif case.startswith("tables-"):
+        put(at["groups"], 3, int(level))
+    elif case == "selectors-0":
+        put(at["groups"] + 3, 15, 0)
+    elif case == "selector-range":  # the first selector's unary code reaches n_groups
+        bits = insert(at["selectors"], [1] * at["n_groups"])
+    elif case.startswith("length-"):  # the first symbol's length steps to 0 or 21
+        cur, want = at["first_length"], int(level)
+        step = [1, 1] if want < cur else [1, 0]
+        bits = insert(at["tables"] + 5, step * abs(want - cur) + [0])
+    elif case == "randomised":
+        bits[112] = 1
+    else:
+        raise ValueError(case)
+    return np.packbits(bits).tobytes()
+
+
+def _moved(fn):
+    """fn's result and the counters it moved."""
+    before = profiling.counters()
+    out = fn()
+    after = profiling.counters()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _outcome(fn, stream):
+    """fn(stream)'s bytes, or the error it raised."""
+    try:
+        return fn(stream)
+    except (ValueError, EOFError) as exc:
+        return exc
+
+
+REJECTED = {  # case: the error both header parses raise
+    "truncated": "EOFError",
+    "tables-1": "Bz2FormatError",
+    "tables-7": "Bz2FormatError",
+    "selectors-0": "Bz2FormatError",
+    "selector-range": "Bz2FormatError",
+    "length-0": "Bz2FormatError",
+    "length-21": "Bz2FormatError",
+    "randomised": "Bz2FormatError",
+}
+
+
+@needs_port_native
+@pytest.mark.parametrize("case", ["stdlib-1", "stdlib-2", "stdlib-9", "port-1", *REJECTED])
+def test_native_header_parse_matches_jax(case):
+    stream = _header_case(case)
+    headers, ends = native.scan_blocks(stream)
+    if case not in REJECTED:
+        for h in headers:
+            got = device_decode._parse_block_header(stream, h)
+            want = jax_device_decode._parse_block_header(stream, h)
+            assert got.keys() == want.keys()
+            for key in ("crc", "orig_ptr", "alpha", "data_start_bit"):
+                assert got[key] == want[key], key
+            for key in ("selectors", "used_bytes"):
+                assert got[key].dtype == want[key].dtype
+                np.testing.assert_array_equal(got[key], want[key])
+            assert len(got["tables"]) == len(want["tables"])
+            for gt, wt in zip(got["tables"], want["tables"]):
+                for g, w in zip(gt, wt):
+                    np.testing.assert_array_equal(g, w)
+        plan, moved = _moved(lambda: device_decode.parse_blocks(stream))
+        assert [p["data_start_bit"] for p in plan[0]] == [
+            jax_device_decode._parse_block_header(stream, h)["data_start_bit"] for h in headers
+        ]
+        assert moved == {"decode_headers": len(headers)}
+        return
+    with pytest.raises((ValueError, EOFError)) as want:
+        jax_device_decode._parse_block_header(stream, headers[0])
+    with pytest.raises((ValueError, EOFError)) as got:
+        device_decode._parse_block_header(stream, headers[0])
+    assert type(want.value).__name__ == type(got.value).__name__ == REJECTED[case]
+    if case == "randomised":
+        assert str(got.value) == str(want.value) == "randomised block: host path"
+    if isinstance(got.value, ValueError):
+        assert type(got.value) is port_decoder.Bz2FormatError
+    plan, moved = _moved(lambda: device_decode.parse_blocks(stream))
+    assert plan is None
+    assert moved == {"decode_fallbacks.block": 1}
+    # decompress_device hands the stream to the host decoder: its bytes, or its error.
+    want_out = _outcome(port_host_decompress, stream)
+    got_out = _outcome(lambda s: device_decode.decompress_device(s, device="cpu"), stream)
+    if isinstance(want_out, Exception):
+        assert type(got_out) is type(want_out) and str(got_out) == str(want_out)
+    else:
+        assert got_out == want_out
+
+
+@needs_port_native
 def test_build_len_luts_matches_jax(rng):
     comp = stdlib_bz2.compress(make_corpus(rng, "text", 60_000), 1)
     hdr = _blocks(comp)[0]
@@ -224,6 +369,7 @@ def _symbol_batch(comp, blocks, nbc):
     return got, jax_out, G
 
 
+@needs_port_native
 @pytest.mark.parametrize("kind,level", [("text", 1), ("random", 1), ("runs", 2), ("text", 9)])
 def test_decode_symbol_data_matches_jax(rng, kind, level):
     comp = stdlib_bz2.compress(make_corpus(rng, kind, 220_000), level)
@@ -237,6 +383,7 @@ def test_decode_symbol_data_matches_jax(rng, kind, level):
         assert (np.asarray(w["symbols"])[G * 50 :] == -1).all()
 
 
+@needs_port_native
 def test_decode_symbol_data_rejects_a_wrong_end_like_jax(rng):
     comp = stdlib_bz2.compress(make_corpus(rng, "text", 40_000), 1)
     blocks = _blocks(comp)
@@ -277,6 +424,7 @@ def test_group_starts_ref_matches_jax_chain():
     _equal(dec_cuda.group_starts(*args), want)  # a CPU tensor takes the plain loop
 
 
+@needs_port_native
 def test_group_starts_are_the_true_group_boundaries(rng):
     # On a real block, each start is where the serial decode of the
     # previous group's 50 symbols ends.

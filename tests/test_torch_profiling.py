@@ -176,16 +176,29 @@ def test_decode_fallback_reasons(monkeypatch, reason):
         streams = [stdlib_bz2.compress(_text(1606, 20_000), 1)]
     else:
         streams = _fallback_streams()[reason]
+    # A stream that leaves after the card took it counts its block headers too.
+    parsed = reason in ("validate", "stream_crc")
     for stream in streams:
         got, moved = _delta(lambda: device_decode._decompress_device_inner(stream, True, CPU))
         assert got is None
+        assert moved.pop("decode_headers", 0) == (len(device_decode.native.scan_blocks(stream)[0]) if parsed else 0)
         assert moved == {f"decode_fallbacks.{reason}": 1}
     if reason == "validate":
         # decompress_device hands it to the host decoder, counted once.
         data = _text(1605, 60_000)
         out, moved = _delta(lambda: device_decode.decompress_device(streams[0], device="cpu"))
         assert out == data + b"second member"
-        assert moved == {"decode_fallbacks.validate": 1}
+        assert moved == {"decode_fallbacks.validate": 1, "decode_headers": 2}
+
+
+def test_decode_headers_count_the_blocks_decoded_on_the_card():
+    data = _text(1608, 330_000)
+    stream = stdlib_bz2.compress(data, 1)
+    headers, _ = device_decode.native.scan_blocks(stream)
+    assert len(headers) == 4
+    out, moved = _delta(lambda: device_decode.decompress_device(stream, device="cpu"))
+    assert out == data
+    assert moved == {"decode_headers": len(headers)}
 
 
 def test_counters_snapshot():
