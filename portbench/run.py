@@ -7,8 +7,9 @@ names a configuration (``portbench/configs/<name>.json``: level, batch,
 the guarantees) and a traffic mix (``portbench/traffic/<name>.json``, made
 by ``portbench/gen.py`` from the seed). Set-up builds or loads the port's
 libraries from ``build/portbench/`` in the checkout, makes the objects
-(for a decompress mix, stock streams by the standard library's bz2) and
-warms up; the window then calls ``bz2tpu_torch.compress`` or
+(for a decompress mix, stock streams by the standard library's bz2: one
+an object, or one a member where the configuration states ``members``,
+see ``split_members``) and warms up; the window then calls ``bz2tpu_torch.compress`` or
 ``decompress_device`` on one object after another, in the mix's order,
 until ``--seconds`` have passed. With ``--trace 1`` the window's last
 ``PROFILED_S`` seconds (half of it where shorter) run under torch.profiler
@@ -26,6 +27,7 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,15 +84,83 @@ def cell_spec(bench: dict, workload: str, root: Path = ROOT) -> tuple[dict, dict
         raise SystemExit(f"{conf_entry['file']}: block_bytes {config['block_bytes']} is not level x 100,000")
     if config["device"] != "cuda":
         raise SystemExit(f"{conf_entry['file']}: device {config['device']!r}; the port is measured on cuda")
-    return cell, config, gen.load_mix(cell["traffic"], root / "portbench" / "traffic")
+    mix = gen.load_mix(cell["traffic"], root / "portbench" / "traffic")
+    if "members" in config:
+        if mix["op"] != "decompress":
+            raise SystemExit(f"{conf_entry['file']}: members on a {mix['op']} mix; only a decode's input is "
+                             "written by the benchmark")
+        if not members_well_formed(config["members"]):
+            raise SystemExit(f"{conf_entry['file']}: members {config['members']!r} is neither "
+                             '{"records": K, "after": "<text>"} nor {"bytes": N}, K and N at least 1, text not empty')
+    return cell, config, mix
 
 
-def metric_reader(name: str):
-    path = BENCH_DIR / "metrics" / f"{name}.py"
+def members_well_formed(members) -> bool:
+    def count(v) -> bool:
+        return isinstance(v, int) and not isinstance(v, bool) and v >= 1
+
+    if not isinstance(members, dict):
+        return False
+    if set(members) == {"records", "after"}:
+        return count(members["records"]) and isinstance(members["after"], str) and members["after"] != ""
+    return set(members) == {"bytes"} and count(members["bytes"])
+
+
+def split_members(data: bytes, members: dict | None) -> list[memoryview]:
+    """The pieces of one object that are written as bzip2 streams of their
+    own, in order. None: the object whole. ``{"records": K, "after": t}``:
+    a cut after every K-th occurrence of t (counted without overlap), so
+    that each piece but the last ends with t; what follows the last cut, if
+    anything, is the last piece. ``{"bytes": N}``: a cut every N bytes."""
+    view = memoryview(data)
+    if members is None or not data:
+        return [view]
+    if "bytes" in members:
+        n = members["bytes"]
+        return [view[i : i + n] for i in range(0, len(data), n)]
+    sep, k = members["after"].encode("utf-8"), members["records"]
+    ends = [m.end() for m in re.finditer(re.escape(sep), data)][k - 1 :: k]
+    starts = [0] + ends
+    if ends and ends[-1] == len(data):
+        starts.pop()
+    return [view[a:b] for a, b in zip(starts, ends + [len(data)])]
+
+
+def write_inputs(raw: list[bytes], level: int, members: dict | None, threads: int = 8) -> tuple[list[bytes], list[int]]:
+    """A decode's inputs, as users read them: each object's pieces
+    (``split_members``) compressed by the standard library's bz2 at
+    ``level`` and concatenated in order, so one stream an object where
+    ``members`` is None. Also the pieces an object. The pieces of all
+    objects share the threads (bz2 releases the GIL)."""
+    import bz2
+    from concurrent.futures import ThreadPoolExecutor
+
+    pieces = [split_members(d, members) for d in raw]
+    flat = [p for ps in pieces for p in ps]
+    with ThreadPoolExecutor(threads) as ex:
+        # The largest first, so that no thread starts one last.
+        order = sorted(range(len(flat)), key=lambda j: -len(flat[j]))
+        written = dict(zip(order, ex.map(lambda j: bz2.compress(flat[j], level), order)))
+    inputs, j = [], 0
+    for ps in pieces:
+        inputs.append(b"".join(written[j + i] for i in range(len(ps))))
+        j += len(ps)
+    return inputs, [len(ps) for ps in pieces]
+
+
+def metric_module(name: str, directory: Path = BENCH_DIR / "metrics"):
+    """The reader of per-layer metric ``name``, ``<directory>/<name>.py``:
+    its ``read(record)`` gives the value or None, and a reader that no test
+    table knows carries its own case, ``EXAMPLE = (record, value)``."""
+    path = Path(directory) / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    return metric_module(name).read
 
 
 def use_cache_dirs() -> None:
@@ -185,14 +255,9 @@ class Cell:
         self.names = [n for n, _ in made]
         self.raw = [d for _, d in made]
         if self.op == "decompress":
-            import bz2
-            from concurrent.futures import ThreadPoolExecutor
-
-            # Stock streams, as users read them; bz2 releases the GIL.
-            with ThreadPoolExecutor(threads) as ex:
-                self.inputs = list(ex.map(lambda d: bz2.compress(d, int(config["level"])), self.raw))
+            self.inputs, self.members = write_inputs(self.raw, int(config["level"]), config.get("members"), threads)
         else:
-            self.inputs = self.raw
+            self.inputs, self.members = self.raw, []
         self.call_s: list[float] = []  # each window call's seconds, in order
         self.host: list[tuple[float, float, float]] = []  # host_sample() before the first call and after each
 
@@ -527,6 +592,9 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     for name, t in marks:
         print(f"portbench: set-up {name} {t - prev:.3f} s", file=sys.stderr)
         prev = t
+    if cell.members:
+        print(f"portbench: set-up input {sum(cell.members)} members ({min(cell.members)}-{max(cell.members)} an "
+              f"object of {len(cell.members)}), {sum(map(len, cell.inputs))} bytes", file=sys.stderr)
     info = card() if on_card else {"platform": device, "kind": device, "count": 1}
     with port.counting_fallbacks(), planted(fault, cell.op, port) if fault else contextlib.nullcontext():
         metrics, rec = measure(bench, workload, cell, seconds, trace, setup_s)
