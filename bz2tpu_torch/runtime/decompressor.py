@@ -71,16 +71,63 @@ def _level_at(mstarts, start_bits, off: int) -> int:
     return mstarts[bisect.bisect_right(start_bits, off) - 1][1]
 
 
+def walk_members(buf, headers, ends, block_end):
+    """The chain of members of a stream from its scanned block headers and
+    end markers, with ``block_end(start bit)`` giving the end bit of the
+    block that starts there (None if it has none). Returns (blocks
+    [(start bit, end bit, member level)], members [(level, block count,
+    end-marker bit)]), or None where the sequential decoder owns the
+    semantics.
+
+    The first member starts at bit 32 with a "BZh<1-9>" magic, and every
+    member at a byte-aligned magic directly followed by a block header
+    (``_member_starts``). Blocks abut: one that ends on a block header goes
+    on into the next block of its member; the member's last block must end
+    exactly on an end marker; the next member, if any, begins at the very
+    next byte boundary after the 32-bit stream CRC. Any irregularity (a
+    block with no end, empty members with no block header after their
+    magic, junk BETWEEN members, a member-like magic beyond the chain's end
+    or a truncated one after it) gives None. Non-magic junk after the last
+    member is ignorable (sequential decode_stream parity).
+    """
+    mstarts, start_bits = _member_starts(buf, headers)
+    if not mstarts or mstarts[0][0] != 32:
+        return None
+    levels = dict(mstarts)
+    header_set, end_set = set(headers), set(ends)
+    blocks: list[tuple[int, int, int]] = []
+    members: list[tuple[int, int, int]] = []
+    cur = 32
+    while True:
+        level, first = levels[cur], len(blocks)
+        while True:  # blocks of this member
+            end = block_end(cur)
+            if end is None or end <= cur:
+                return None
+            blocks.append((cur, end, level))
+            if end not in header_set:
+                break
+            cur = end
+        if end not in end_set:
+            return None
+        members.append((level, len(blocks) - first, end))
+        next_start = ((end + 48 + 32 + 7) // 8) * 8 + 32
+        if next_start in levels:
+            cur = next_start
+            continue
+        if start_bits[-1] > end or _tail_is_memberlike(buf, end):
+            return None
+        return blocks, members
+
+
 def _decompress_parallel(stream: bytes, verify_crc: bool) -> bytes | None:
     """Block-parallel decode (multi-member aware); None = 'go sequential'.
 
     Members (concatenated .bz2 streams, e.g. pbzip2 output) chain through
-    the same exact verification as blocks: a member's last block must end
-    at a scanned end marker, its stream CRC must fold, and the next member
-    must start at the very next byte. Any irregularity — spurious markers,
-    empty members (no block header follows their magic), truncated magic,
-    junk BETWEEN members — defers to the sequential decoder, which owns
-    the error/trailing-data semantics.
+    the same exact verification as blocks (``walk_members``), each block's
+    end taken from its decode, and each member's stream CRC must fold. Any
+    irregularity defers to the sequential decoder, which owns the
+    error/trailing-data semantics.
     """
     if len(stream) < 4 or stream[:3] != b"BZh":
         return None  # sequential path raises the proper format error
@@ -89,7 +136,6 @@ def _decompress_parallel(stream: bytes, verify_crc: bool) -> bytes | None:
         return None
     if headers[0] != 32:  # first block follows BZh<level> immediately
         return None
-    ends_set = set(ends)
     mstarts, start_bits = _member_starts(stream, headers)
     if not mstarts or mstarts[0][0] != 32:
         return None
@@ -106,7 +152,7 @@ def _decompress_parallel(stream: bytes, verify_crc: bool) -> bytes | None:
 
     workers = min(len(headers), os.cpu_count() or 1)
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        results = list(pool.map(decode_one, headers))
+        results = dict(zip(headers, pool.map(decode_one, headers)))
 
     # Walk the block chain by POSITION (blocks abut bit-exactly), not by
     # header index: a spurious marker match lands OFF the chain and is
@@ -115,32 +161,23 @@ def _decompress_parallel(stream: bytes, verify_crc: bool) -> bytes | None:
     # Only an ON-chain failure — a block the stream actually needs that
     # would not decode — defers to the sequential path, which owns the
     # error semantics.
-    pos2idx = {h: k for k, h in enumerate(headers)}
+    def decoded_end(off):
+        r = results.get(off)
+        return None if r is None else r[2]
+
+    chain = walk_members(stream, headers, ends, decoded_end)
+    if chain is None:
+        return None
+    blocks, members = chain
     out = []
-    member_no = 0
-    cur = 32
-    while True:
-        # bisect over the sorted member-start bits: `cur` must BE one.
-        j = bisect.bisect_left(start_bits, cur)
-        if j >= len(start_bits) or start_bits[j] != cur:
-            return None  # member bookkeeping out of sync: sequential
+    first = 0
+    for member_no, (_, n_blocks, end_bit) in enumerate(members):
         s_crc = 0
-        while True:  # blocks of this member
-            idx = pos2idx.get(cur)
-            if idx is None or results[idx] is None:
-                return None  # an on-chain block failed: sequential
-            data, crc, end_bit = results[idx]
-            if end_bit <= cur:
-                return None
+        for start, _, _ in blocks[first : first + n_blocks]:
+            data, crc, _ = results[start]
             out.append(data)
             s_crc = stream_crc_fold(s_crc, crc)
-            if end_bit in pos2idx:
-                cur = end_bit
-                continue
-            break
-        # The member's last block must land exactly on an end marker.
-        if end_bit not in ends_set:
-            return None
+        first += n_blocks
         pos = end_bit + 48
         if pos + 32 > len(stream) * 8:
             raise Bz2FormatError("truncated stream CRC")
@@ -154,26 +191,7 @@ def _decompress_parallel(stream: bytes, verify_crc: bool) -> bytes | None:
                 raise Bz2CrcError(
                     f"stream CRC mismatch: {stored:#x} != {s_crc:#x}"
                 )
-        member_no += 1
-        # Next member, if any, must begin at the very next byte boundary.
-        next_start = ((pos + 32 + 7) // 8) * 8 + 32
-        j = bisect.bisect_left(start_bits, next_start)
-        if j < len(start_bits) and start_bits[j] == next_start:
-            cur = next_start
-            continue
-        if any(s > end_bit for s in start_bits):
-            # A member-like magic BEYOND the final chain end that is not
-            # at the expected abutment (junk between members, or a stray
-            # magic in trailing junk): the sequential decoder owns those
-            # semantics.
-            return None
-        if _tail_is_memberlike(stream, end_bit):
-            # Truncated magic or an empty member after the last block:
-            # the sequential decoder knows those semantics.
-            return None
-        # Non-magic junk after the final member is ignorable (sequential
-        # decode_stream parity).
-        return b"".join(out)
+    return b"".join(out)
 
 
 def _read_bits_at(buf, pos: int, nbits: int) -> int:

@@ -1,23 +1,37 @@
 """decompress_device(): Huffman + MTF + inverse BWT on the device (torch).
 
-Port of bz2tpu/runtime/device_decode.py:
+Port of bz2tpu/runtime/device_decode.py, which it extends to streams of
+several members:
 
   host    the C core (native/_bz2dec.c) finds the block boundaries with a
-          byte-wise marker search and parses each block's small header
+          byte-wise marker search; the member walk
+          (decompressor.walk_members, which the host decoder's block-parallel
+          path shares) chains the members, and the C core parses each block's small header
           (symbol map, selectors, code lengths) in one pass;
-  device  per batch of up to 8 same-shape blocks: the jump-map Huffman
-          decode (ops/huffman_dec.py, with the dec_chain and dec_symbols
-          kernels), run expansion + inverse MTF (ops/mtf_dec.py, with the
-          mtf_dec kernel) and the pointer-doubling inverse BWT
-          (ops/ibwt.py), then one copy back per batch;
-  host    native inverse RLE1 + CRC, the block and stream CRC checks, and
-          the ordered concatenation.
+  device  per batch of up to 8 same-cap blocks, from any members: the
+          jump-map Huffman decode (ops/huffman_dec.py, with the dec_chain
+          and dec_symbols kernels), run expansion + inverse MTF
+          (ops/mtf_dec.py, with the mtf_dec kernel) and the
+          pointer-doubling inverse BWT (ops/ibwt.py), then one copy back
+          per batch;
+  host    native inverse RLE1 + CRC, the block CRC checks, each
+          member's stream CRC, and the ordered concatenation.
 
-Every device result is validated exactly (EOB at the block's end bit, run
-lengths in bounds, then the block CRC). A stream the device path cannot
-certify (several members, a randomised block, a block whose ``ok`` is
-false) goes to the host decoder (runtime/decompressor.py) as a whole, so
-the output equals bz2tpu.runtime.decompressor.decompress on every input. An error from a
+A stream is a chain of members (concatenated bzip2 streams, as
+Wikimedia's multistream dumps or pbzip2 write them): a member starts at a
+byte-aligned ``BZh1``-``BZh9`` directly followed by a block header, its
+last block ends at its end marker, and the next member starts at the byte
+after the 32-bit stream CRC that follows the marker. Every device result
+is validated exactly (EOB at the block's end bit, run lengths in bounds,
+at most the member's level x 100,000 bytes, then the block CRC), and each
+member's block CRCs fold into its own stream CRC. What the host decoder
+gives its own semantics to goes to it as a whole: no native scanner, no
+magic, an empty member, junk between members, a member-like magic after
+the last member or off the chain, a randomised block, a batch that fails
+validation, a stream CRC that is missing or does not match, a block CRC
+that does not match in a later member. So the output equals
+runtime/decompressor.decompress on every input; bz2tpu's form also
+leaves every stream of several members to the host. An error from a
 kernel build or launch is not such a case: it propagates.
 
 Blocks are bucketed by the JAX form's bit-range cap (the symbol data's
@@ -25,10 +39,13 @@ bit count rounded up to a power of two), because that cap is part of what
 ``ok`` checks. The JAX form also buckets by the group count rounded up,
 a compile shape only: here a batch's arrays are sized by its true largest
 group count and decoded length, since eager torch compiles nothing per
-shape.
+shape. The output capacity of every row is the power of two at or
+above the largest member level x 100,000.
 """
 
 from __future__ import annotations
+
+import bisect
 
 import numpy as np
 import torch
@@ -48,6 +65,7 @@ from bz2tpu_torch.ops.huffman_dec import (
 from bz2tpu_torch.ops.ibwt import ibwt
 from bz2tpu_torch.ops.mtf_dec import CHUNK, mtf_rle2_decode
 from bz2tpu_torch.ops.pipeline import StageClock, _lap
+from bz2tpu_torch.runtime.decompressor import walk_members
 from bz2tpu_torch.runtime.decompressor import decompress as host_decompress
 from bz2tpu_torch.utils.device import resolve_device
 from bz2tpu_torch.utils.profiling import count, span
@@ -119,10 +137,18 @@ def stream_words(stream: bytes, device: torch.device) -> torch.Tensor:
     return window_words(torch.from_numpy(padded).to(device))
 
 
-def parse_blocks(stream: bytes) -> tuple[list[dict], list[int]] | None:
-    """Every block header of a single-member stream, with its end bit and
-    bit-range cap, and the end markers; None where the stream must go to the
-    host decoder."""
+def parse_blocks(
+    stream: bytes, clock: StageClock | None = None
+) -> tuple[list[dict], list[tuple[int, int, int]]] | None:
+    """Every block header of the stream's members, each with its end bit,
+    bit-range cap and member level, and each member's (level, block count,
+    end-marker bit); None where the stream must go to the host decoder.
+
+    The C core's scan gives every block header and end marker; the member
+    walk (``decompressor.walk_members``) cuts the blocks from them, each at
+    the next marker, and chains the members. With a clock, the scan and
+    the header parse lap under "parse" and the walk under "members".
+    """
     if not native.HAVE_NATIVE:
         count("decode_fallbacks.no_native")
         return None
@@ -133,11 +159,24 @@ def parse_blocks(stream: bytes) -> tuple[list[dict], list[int]] | None:
     if not headers or not ends or headers[0] != 32:
         count("decode_fallbacks.scan")
         return None
-    # Single-member streams only: the final end marker must follow the
-    # last header; anything else goes to the host path.
-    boundaries = headers[1:] + [ends[-1]]
+    _lap(clock, "parse")
+    with span("bz2.members"):
+        markers = sorted(headers + ends)
+
+        def next_marker(cur: int) -> int | None:
+            # A spurious marker inside block data cuts a block short: its
+            # batch then fails validation.
+            j = bisect.bisect_right(markers, cur)
+            return markers[j] if j < len(markers) else None
+
+        chain = walk_members(stream, headers, ends, next_marker)
+    _lap(clock, "members")
+    if chain is None:
+        count("decode_fallbacks.members")
+        return None
+    bounds, members = chain
     parsed = []
-    for start, end in zip(headers, boundaries):
+    for start, end, level in bounds:
         try:
             hdr = _parse_block_header(stream, start)
         except (Bz2FormatError, EOFError):
@@ -149,14 +188,22 @@ def parse_blocks(stream: bytes) -> tuple[list[dict], list[int]] | None:
             return None
         hdr["end_bit"] = end
         hdr["n_bits_cap"] = _pow2_at_least(n_bits, 1 << 12)
+        hdr["level"] = level
         parsed.append(hdr)
     count("decode_headers", len(parsed))
-    return parsed, ends
+    count("decode_members", len(members))
+    return parsed, members
+
+
+def out_capacity(parsed: list[dict]) -> int:
+    """Every row's output capacity: the largest member level x 100,000, to
+    a power of two."""
+    return _pow2_at_least(max(p["level"] for p in parsed) * C.BLOCK_SIZE_BASE)
 
 
 def batches(parsed: list[dict]) -> list[tuple[int, list[int]]]:
     """(bit-range cap, block indices) of each device batch: blocks of one
-    cap, up to BUCKET_W at a time."""
+    cap, from any members, up to BUCKET_W at a time."""
     buckets: dict[int, list[int]] = {}
     for i, p in enumerate(parsed):
         buckets.setdefault(p["n_bits_cap"], []).append(i)
@@ -244,6 +291,10 @@ def _decode_batch(
     decoded = ibwt(md["bwt"], md["n_bwt"], bt["orig_ptr"]).cpu().numpy()
     n_bwt = md["n_bwt"].cpu().numpy()
     _lap(clock, "ibwt")
+    if any(n > p["level"] * C.BLOCK_SIZE_BASE for n, p in zip(n_bwt.tolist(), rows)):
+        # Over its member's declared block size, which the host decoder refuses.
+        count("decode_fallbacks.validate")
+        return None
     return [decoded[r, : n_bwt[r]].tobytes() for r in range(len(rows))]
 
 
@@ -251,26 +302,27 @@ def _decompress_device_inner(
     stream: bytes, verify_crc: bool, device: torch.device, timings: dict | None = None, split: dict | None = None
 ) -> bytes | None:
     """The device decode, or None where the stream must go to the host
-    decoder: exactly where bz2tpu's form returns None.
+    decoder (see the module doc).
 
     With ``timings``, seconds accumulate under "parse" (block scan and
-    header parse, host), "tables" (table packing, upload, length LUTs),
-    "huffman", "mtf" (with validation), "ibwt" (with the copy back) and
-    "rle1_crc" (inverse RLE1 and CRCs, host); every lap waits for the
-    device (see ops/pipeline.StageClock). With ``split`` too, the steps of
-    "huffman" accumulate there under "jump_maps", "dec_chain" (D1),
-    "dec_symbols" (D3) and "validate", and those of "mtf" under
-    "segments", "chunk_perms" (D4), "chunk_scan" and "expand".
+    header parse, host), "members" (the member walk, host), "tables"
+    (table packing, upload, length LUTs), "huffman", "mtf" (with
+    validation), "ibwt" (with the copy back) and "rle1_crc" (inverse RLE1
+    and CRCs, host); every lap waits for the device (see
+    ops/pipeline.StageClock). With ``split`` too, the steps of "huffman"
+    accumulate there under "jump_maps", "dec_chain" (D1), "dec_symbols"
+    (D3) and "validate", and those of "mtf" under "segments",
+    "chunk_perms" (D4), "chunk_scan" and "expand".
     """
     clock = None if timings is None else StageClock(timings, device)
     with span("bz2.parse"):
-        plan = parse_blocks(stream)
+        plan = parse_blocks(stream, clock)
     _lap(clock, "parse")
     if plan is None:
         return None
-    parsed, ends = plan
+    parsed, members = plan
     words = stream_words(stream, device)
-    out_cap = _pow2_at_least((stream[3] - ord("0")) * C.BLOCK_SIZE_BASE)
+    out_cap = out_capacity(parsed)
     results: list[bytes] = [b""] * len(parsed)
     for nbc, group in batches(parsed):
         walked = _decode_batch(words, [parsed[i] for i in group], nbc, out_cap, device, clock, split)
@@ -279,27 +331,41 @@ def _decompress_device_inner(
         for i, data in zip(group, walked):
             results[i] = data
     del words
+    return _join_members(stream, verify_crc, parsed, members, results, clock)
 
+
+def _join_members(
+    stream: bytes, verify_crc: bool, parsed: list[dict], members: list[tuple[int, int, int]],
+    results: list[bytes], clock: StageClock | None,
+) -> bytes | None:
+    """The members' bytes in order, each block's CRC and each member's
+    stream CRC checked; None where the host decoder owns the outcome."""
     pieces = []
-    s_crc = 0
-    for i, p in enumerate(parsed):
-        data, crc = native.inverse_rle1(results[i])
-        if verify_crc and crc != p["crc"]:
-            raise Bz2CrcError(f"block CRC mismatch: {p['crc']:#x} != {crc:#x}")
-        s_crc = stream_crc_fold(s_crc, p["crc"])
-        pieces.append(data)
-    # The stream CRC sits 48 bits past the final end marker.
-    pos = ends[-1] + 48
-    if pos + 32 > len(stream) * 8:
-        count("decode_fallbacks.stream_crc")
-        return None
     r = BitReader(stream)
-    r._pos = pos
-    stored = r.read_bits(32)
-    if verify_crc and stored != s_crc:
-        # Perhaps several members (one CRC each): the host path decides
-        # whether this is an error or a member boundary.
-        count("decode_fallbacks.stream_crc")
-        return None
+    first = 0
+    for m, (_, n_blocks, end) in enumerate(members):
+        s_crc = 0
+        for i in range(first, first + n_blocks):
+            data, crc = native.inverse_rle1(results[i])
+            if verify_crc and crc != parsed[i]["crc"]:
+                if m:
+                    # A later member that fails: the host decoder rolls back to
+                    # the members before it.
+                    count("decode_fallbacks.members")
+                    return None
+                raise Bz2CrcError(f"block CRC mismatch: {parsed[i]['crc']:#x} != {crc:#x}")
+            s_crc = stream_crc_fold(s_crc, parsed[i]["crc"])
+            pieces.append(data)
+        first += n_blocks
+        # The member's stream CRC sits 48 bits past its end marker.
+        r._pos = end + 48
+        if r._pos + 32 > len(stream) * 8:
+            count("decode_fallbacks.stream_crc")
+            return None
+        if verify_crc and r.read_bits(32) != s_crc:
+            # The host decoder raises for the first member and rolls back
+            # to the members before a later one.
+            count("decode_fallbacks.stream_crc")
+            return None
     _lap(clock, "rle1_crc")
     return b"".join(pieces)

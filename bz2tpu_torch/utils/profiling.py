@@ -24,6 +24,7 @@ idle gaps inside it as busy. Every span name is in ``SPANS``:
   bz2.fetch     compress: a batch's copy back and byte swap
   bz2.stitch    compress: end marker, stream CRC and the bit stitch
   bz2.parse     decode: the block scan and the header parse
+  bz2.members   inside bz2.parse: the member walk (parse_blocks)
 
 ``count(name)`` adds to ``COUNTERS``, plain ints that run whether or not
 a profiler does (unlocked: calls on several threads at once may lose an
@@ -35,14 +36,19 @@ launches. Every counter name is in ``COUNTER_NAMES``:
   host_syncs            blocking reads of a value from the card (bz2.wait)
   decode_headers        block headers parsed by the C core for streams the
                         card goes on to decode (parse_blocks)
+  decode_members        members of the streams the card goes on to decode
+                        (parse_blocks): one a stream of one member
   decode_fallbacks.*    streams decompress_device handed to the host decoder,
                         by reason: no_native (no native scanner built),
                         header (no BZh magic), scan (the block scan found no
-                        single-member layout), block (a block header that does
-                        not parse, or an empty block), validate (a decoded
-                        batch failed its exact checks), stream_crc (no stream
-                        CRC, or one that does not match: perhaps several
-                        members)
+                        block right after the header, or no end marker),
+                        members (members that do not chain: an empty member,
+                        junk between members, a member-like magic after the
+                        last member or off the chain; or a block CRC that does
+                        not match in a later member), block (a block header
+                        that does not parse, or an empty block), validate (a
+                        decoded batch failed its exact checks), stream_crc (a
+                        member's stream CRC missing, or not matching)
 """
 
 from __future__ import annotations
@@ -57,11 +63,12 @@ import torch.autograd.profiler as _autograd_profiler
 
 SPANS = (
     "bz2.split", "bz2.upload", "bz2.encode", "bz2.bwt", "bz2.mtf", "bz2.rle2_out", "bz2.huffman",
-    "bz2.pack", "bz2.wait", "bz2.fetch", "bz2.stitch", "bz2.parse",
+    "bz2.pack", "bz2.wait", "bz2.fetch", "bz2.stitch", "bz2.parse", "bz2.members",
 )
-FALLBACK_REASONS = ("no_native", "header", "scan", "block", "validate", "stream_crc")
+FALLBACK_REASONS = ("no_native", "header", "scan", "members", "block", "validate", "stream_crc")
 COUNTER_NAMES = (
-    "batches", "bwt_rounds", "host_syncs", "decode_headers", *(f"decode_fallbacks.{r}" for r in FALLBACK_REASONS)
+    "batches", "bwt_rounds", "host_syncs", "decode_headers", "decode_members",
+    *(f"decode_fallbacks.{r}" for r in FALLBACK_REASONS),
 )
 COUNTERS: dict[str, int] = dict.fromkeys(COUNTER_NAMES, 0)
 

@@ -301,7 +301,7 @@ def test_cpu_decode_launches_no_kernel_and_splits_its_stages():
     assert device_decode._decompress_device_inner(comp, True, CPU, timings, split) == data
     assert dec_cuda.LAUNCHES == {"dec_chain": 0, "dec_symbols": 0}
     assert mtf_dec_cuda.LAUNCHES == {"mtf_dec": 0}
-    assert set(timings) == {"parse", "tables", "huffman", "mtf", "ibwt", "rle1_crc"}
+    assert set(timings) == {"parse", "members", "tables", "huffman", "mtf", "ibwt", "rle1_crc"}
     assert set(split) == {"jump_maps", "dec_chain", "dec_symbols", "validate", "segments", "chunk_perms",
                           "chunk_scan", "expand"}
     assert all(v >= 0 for v in split.values())

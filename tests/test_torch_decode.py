@@ -285,7 +285,7 @@ def test_native_header_parse_matches_jax(case):
         assert [p["data_start_bit"] for p in plan[0]] == [
             jax_device_decode._parse_block_header(stream, h)["data_start_bit"] for h in headers
         ]
-        assert moved == {"decode_headers": len(headers)}
+        assert moved == {"decode_headers": len(headers), "decode_members": 1}
         return
     with pytest.raises((ValueError, EOFError)) as want:
         jax_device_decode._parse_block_header(stream, headers[0])
@@ -481,12 +481,17 @@ def test_decompress_device_fallbacks_match_jax(rng):
     b = make_corpus(rng, "runs", 60_000)
     multi = stdlib_bz2.compress(a, 1) + stdlib_bz2.compress(b, 9)
     randomised = craft_randomised_stream(make_corpus(rng, "text", 20_000))
-    for stream, want in ((multi, a + b), (randomised, stdlib_bz2.decompress(randomised))):
-        # Both forms leave these streams to the host decoder.
-        assert device_decode._decompress_device_inner(stream, True, CPU) is None
-        assert jax_device_decode._decompress_device_inner(stream, True) is None
-        assert device_decode.decompress_device(stream, device="cpu") == want
-        assert jax_device_decode.decompress_device(stream) == want
+    # Both forms leave a randomised block to the host decoder.
+    want = stdlib_bz2.decompress(randomised)
+    assert device_decode._decompress_device_inner(randomised, True, CPU) is None
+    assert jax_device_decode._decompress_device_inner(randomised, True) is None
+    assert device_decode.decompress_device(randomised, device="cpu") == want
+    assert jax_device_decode.decompress_device(randomised) == want
+    # Several members: the JAX form leaves them to the host, the port decodes
+    # them on the device path, to the same bytes.
+    assert jax_device_decode._decompress_device_inner(multi, True) is None
+    assert device_decode._decompress_device_inner(multi, True, CPU) == a + b
+    assert device_decode.decompress_device(multi, device="cpu") == jax_device_decode.decompress_device(multi) == a + b
 
 
 def test_decompress_device_corrupt_raises_like_jax(rng):
@@ -509,7 +514,7 @@ def test_decompress_device_timings_cover_every_stage(rng):
     data = make_corpus(rng, "text", 30_000)
     timings = {}
     assert device_decode.decompress_device(stdlib_bz2.compress(data, 1), device="cpu", timings=timings) == data
-    assert set(timings) == {"parse", "tables", "huffman", "mtf", "ibwt", "rle1_crc"}
+    assert set(timings) == {"parse", "members", "tables", "huffman", "mtf", "ibwt", "rle1_crc"}
 
 
 def test_decompress_device_needs_cuda_unless_cpu(monkeypatch):

@@ -41,8 +41,9 @@ PARENTS = {
     "bz2.fetch": {None},
     "bz2.stitch": {None},
     "bz2.parse": {None},
+    "bz2.members": {"bz2.parse"},
 }
-COMPRESS_SPANS = set(SPANS) - {"bz2.parse"}
+COMPRESS_SPANS = set(SPANS) - {"bz2.parse", "bz2.members"}
 
 
 @pytest.fixture(autouse=True)
@@ -104,7 +105,7 @@ def test_spans_under_the_profiler(op):
     else:
         stream = stdlib_bz2.compress(data, 1)
         call = lambda: device_decode.decompress_device(stream, device="cpu")  # noqa: E731
-        want = {"bz2.parse"}
+        want = {"bz2.parse", "bz2.members"}
     plain = call()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = call()
@@ -121,7 +122,7 @@ def test_spans_under_the_profiler(op):
         assert n["bz2.split"] == n["bz2.stitch"] == 1
         assert n["bz2.upload"] == n["bz2.encode"] == n["bz2.fetch"] == n["bz2.pack"] == 2  # a batch a block
     else:
-        assert n == {"bz2.parse": 1}
+        assert n == {"bz2.parse": 1, "bz2.members": 1}
 
 
 @pytest.mark.parametrize("parallel", [2, 8])
@@ -154,41 +155,53 @@ def test_periodic_input_takes_more_bwt_rounds():
 def _fallback_streams() -> dict:
     data = _text(1605, 60_000)
     good = stdlib_bz2.compress(data, 1)
+    second = stdlib_bz2.compress(b"second member", 9)
     randomised = bytearray(good)
     randomised[14] |= 0x80  # the first block's randomised bit (bit 112: magic, marker, CRC)
+    # The last bit of the end-of-block code flipped: the decode's end of block
+    # misses its end bit.
+    last = device_decode.native.scan_blocks(good)[1][0] - 1
+    altered = bytearray(good)
+    altered[last >> 3] ^= 0x80 >> (last & 7)
     bad_crc = bytearray(good)
     bad_crc[-4] ^= 0x01  # inside the stream CRC, whatever the padding after it
     return {
         "header": [b"BZx9" + good[4:]],
         "scan": [stdlib_bz2.compress(b"")],  # no block at all
+        # An empty member between two; junk between two; a cut magic after the last.
+        "members": [good + stdlib_bz2.compress(b"") + second, good + b"junk" + second, good + second + b"BZh9"],
         "block": [bytes(randomised)],
-        # Two members: the first member's block runs on into the second,
-        # so its decode ends off its end bit.
-        "validate": [good + stdlib_bz2.compress(b"second member", 9)],
+        "validate": [bytes(altered)],
         "stream_crc": [good[:-4], bytes(bad_crc)],  # the CRC cut off; a CRC that does not match
     }
 
 
-@pytest.mark.parametrize("reason", ["no_native", "header", "scan", "block", "validate", "stream_crc"])
+@pytest.mark.parametrize("reason", ["no_native", "header", "scan", "members", "block", "validate", "stream_crc"])
 def test_decode_fallback_reasons(monkeypatch, reason):
     if reason == "no_native":
         monkeypatch.setattr(device_decode.native, "HAVE_NATIVE", False)
         streams = [stdlib_bz2.compress(_text(1606, 20_000), 1)]
     else:
         streams = _fallback_streams()[reason]
-    # A stream that leaves after the card took it counts its block headers too.
+    # A stream that leaves after the card took it counts its block headers
+    # and members too.
     parsed = reason in ("validate", "stream_crc")
     for stream in streams:
         got, moved = _delta(lambda: device_decode._decompress_device_inner(stream, True, CPU))
         assert got is None
         assert moved.pop("decode_headers", 0) == (len(device_decode.native.scan_blocks(stream)[0]) if parsed else 0)
+        assert moved.pop("decode_members", 0) == int(parsed)
         assert moved == {f"decode_fallbacks.{reason}": 1}
     if reason == "validate":
-        # decompress_device hands it to the host decoder, counted once.
+        # decompress_device hands it to the host decoder, counted once; two
+        # members decode on the card.
+        with pytest.raises(ValueError):
+            device_decode.decompress_device(streams[0], device="cpu")
         data = _text(1605, 60_000)
-        out, moved = _delta(lambda: device_decode.decompress_device(streams[0], device="cpu"))
+        two = stdlib_bz2.compress(data, 1) + stdlib_bz2.compress(b"second member", 9)
+        out, moved = _delta(lambda: device_decode.decompress_device(two, device="cpu"))
         assert out == data + b"second member"
-        assert moved == {"decode_fallbacks.validate": 1, "decode_headers": 2}
+        assert moved == {"decode_headers": 2, "decode_members": 2}
 
 
 def test_decode_headers_count_the_blocks_decoded_on_the_card():
@@ -198,7 +211,7 @@ def test_decode_headers_count_the_blocks_decoded_on_the_card():
     assert len(headers) == 4
     out, moved = _delta(lambda: device_decode.decompress_device(stream, device="cpu"))
     assert out == data
-    assert moved == {"decode_headers": len(headers)}
+    assert moved == {"decode_headers": len(headers), "decode_members": 1}
 
 
 def test_counters_snapshot():
