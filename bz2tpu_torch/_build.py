@@ -58,6 +58,9 @@ SIGNATURES = {
     "bz2t_crc_ranges_work": (_I, _I),
     "bz2t_crc_ranges": (_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P),
     "bz2t_block_cuts": (_P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P),
+    "bz2t_rle1_dec_tiles": (_L,),
+    "bz2t_rle1_dec_parse": (_P, _L, _L, _P, _I, _I, _P, _P, _P, _P, _P),
+    "bz2t_rle1_dec_expand": (_P, _L, _L, _P, _I, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

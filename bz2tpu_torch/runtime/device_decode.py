@@ -11,11 +11,12 @@ several members:
   device  per batch of up to 8 same-cap blocks, from any members: the
           jump-map Huffman decode (ops/huffman_dec.py, with the dec_chain
           and dec_symbols kernels), run expansion + inverse MTF
-          (ops/mtf_dec.py, with the mtf_dec kernel) and the
-          pointer-doubling inverse BWT (ops/ibwt.py), then one copy back
-          per batch;
-  host    native inverse RLE1 + CRC, the block CRC checks, each
-          member's stream CRC, and the ordered concatenation.
+          (ops/mtf_dec.py, with the mtf_dec kernel), the pointer-doubling
+          inverse BWT (ops/ibwt.py), the inverse RLE1 into one flat buffer
+          and each block's CRC (ops/rle1_dec.py, with the rle1_dec and
+          crc_ranges kernels), then one copy back per batch;
+  host    the block CRC checks, each member's stream CRC, and the ordered
+          concatenation.
 
 A stream is a chain of members (concatenated bzip2 streams, as
 Wikimedia's multistream dumps or pbzip2 write them): a member starts at a
@@ -65,6 +66,7 @@ from bz2tpu_torch.ops.huffman_dec import (
 from bz2tpu_torch.ops.ibwt import ibwt
 from bz2tpu_torch.ops.mtf_dec import CHUNK, mtf_rle2_decode
 from bz2tpu_torch.ops.pipeline import StageClock, _lap
+from bz2tpu_torch.ops.rle1_dec import inverse_rle1_crc
 from bz2tpu_torch.runtime.decompressor import walk_members
 from bz2tpu_torch.runtime.decompressor import decompress as host_decompress
 from bz2tpu_torch.utils.device import resolve_device
@@ -264,11 +266,10 @@ def batch_tensors(rows: list[dict], device: torch.device) -> dict[str, torch.Ten
 def _decode_batch(
     words, rows: list[dict], nbc: int, out_cap: int, device, clock: StageClock | None,
     split: dict | None = None,
-) -> list[bytes] | None:
-    """Decode a batch of same-bucket blocks to their BWT-inverted bytes
-    (still RLE1-encoded); None if any block fails validation. With a clock
-    and ``split``, the steps inside "huffman" and "mtf" also add their
-    seconds to ``split``."""
+) -> list[tuple[memoryview, int]] | None:
+    """Decode a batch of same-bucket blocks to each block's bytes and CRC;
+    None if any block fails validation. With a clock and ``split``, the
+    steps inside "huffman" and "mtf" also add their seconds to ``split``."""
     bt = batch_tensors(rows, device)
     _lap(clock, "tables")
     lap = StageClock(split, device).lap if clock is not None and split is not None else lambda stage: None
@@ -284,18 +285,23 @@ def _decode_batch(
     md = mtf_rle2_decode(syms, hd["n_sym"], bt["initial_list"], bt["eob"], out_capacity=out_cap, lap=lap)
     ok = hd["ok"] & md["ok"] & (bt["orig_ptr"] < md["n_bwt"])
     del hd, syms
-    if not bool(ok.all()):
+    n_bwt = md["n_bwt"].contiguous()
+    b = len(rows)
+    checks = torch.cat([ok.to(torch.int64), n_bwt.to(torch.int64)]).tolist()
+    # Over its member's declared block size is a block the host decoder refuses.
+    if not all(checks[:b]) or any(n > p["level"] * C.BLOCK_SIZE_BASE for n, p in zip(checks[b:], rows)):
         count("decode_fallbacks.validate")
         return None
     _lap(clock, "mtf")
-    decoded = ibwt(md["bwt"], md["n_bwt"], bt["orig_ptr"]).cpu().numpy()
-    n_bwt = md["n_bwt"].cpu().numpy()
+    decoded = ibwt(md["bwt"], n_bwt, bt["orig_ptr"])
     _lap(clock, "ibwt")
-    if any(n > p["level"] * C.BLOCK_SIZE_BASE for n, p in zip(n_bwt.tolist(), rows)):
-        # Over its member's declared block size, which the host decoder refuses.
-        count("decode_fallbacks.validate")
-        return None
-    return [decoded[r, : n_bwt[r]].tobytes() for r in range(len(rows))]
+    flat, ends, crcs = inverse_rle1_crc(decoded, n_bwt)
+    del decoded
+    data = memoryview(flat.cpu().numpy())
+    crcs = crcs.tolist()
+    count("decode_rle1_device", b)
+    _lap(clock, "rle1_crc")
+    return [(data[ends[r] : ends[r + 1]], crcs[r]) for r in range(b)]
 
 
 def _decompress_device_inner(
@@ -307,8 +313,9 @@ def _decompress_device_inner(
     With ``timings``, seconds accumulate under "parse" (block scan and
     header parse, host), "members" (the member walk, host), "tables"
     (table packing, upload, length LUTs), "huffman", "mtf" (with
-    validation), "ibwt" (with the copy back) and "rle1_crc" (inverse RLE1
-    and CRCs, host); every lap waits for the device (see
+    validation), "ibwt" and "rle1_crc" (each batch's inverse RLE1, block
+    CRCs and copy back on the device, then the CRC checks and each
+    member's stream CRC on the host); every lap waits for the device (see
     ops/pipeline.StageClock). With ``split`` too, the steps of "huffman"
     accumulate there under "jump_maps", "dec_chain" (D1), "dec_symbols"
     (D3) and "validate", and those of "mtf" under "segments",
@@ -323,7 +330,7 @@ def _decompress_device_inner(
     parsed, members = plan
     words = stream_words(stream, device)
     out_cap = out_capacity(parsed)
-    results: list[bytes] = [b""] * len(parsed)
+    results: list[tuple[memoryview | bytes, int]] = [(b"", 0)] * len(parsed)
     for nbc, group in batches(parsed):
         walked = _decode_batch(words, [parsed[i] for i in group], nbc, out_cap, device, clock, split)
         if walked is None:
@@ -336,17 +343,18 @@ def _decompress_device_inner(
 
 def _join_members(
     stream: bytes, verify_crc: bool, parsed: list[dict], members: list[tuple[int, int, int]],
-    results: list[bytes], clock: StageClock | None,
+    results: list[tuple[memoryview | bytes, int]], clock: StageClock | None,
 ) -> bytes | None:
-    """The members' bytes in order, each block's CRC and each member's
-    stream CRC checked; None where the host decoder owns the outcome."""
+    """The members' bytes in order, each block's CRC (from the device) and
+    each member's stream CRC checked; None where the host decoder owns the
+    outcome."""
     pieces = []
     r = BitReader(stream)
     first = 0
     for m, (_, n_blocks, end) in enumerate(members):
         s_crc = 0
         for i in range(first, first + n_blocks):
-            data, crc = native.inverse_rle1(results[i])
+            data, crc = results[i]
             if verify_crc and crc != parsed[i]["crc"]:
                 if m:
                     # A later member that fails: the host decoder rolls back to

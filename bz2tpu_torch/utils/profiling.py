@@ -38,6 +38,9 @@ launches. Every counter name is in ``COUNTER_NAMES``:
                         card goes on to decode (parse_blocks)
   decode_members        members of the streams the card goes on to decode
                         (parse_blocks): one a stream of one member
+  decode_rle1_device    blocks whose inverse RLE1 and CRC ran on the device
+                        (device_decode._decode_batch, ops/rle1_dec.py): equal
+                        to decode_headers on a stream the card decodes whole
   decode_fallbacks.*    streams decompress_device handed to the host decoder,
                         by reason: no_native (no native scanner built),
                         header (no BZh magic), scan (the block scan found no
@@ -67,7 +70,7 @@ SPANS = (
 )
 FALLBACK_REASONS = ("no_native", "header", "scan", "members", "block", "validate", "stream_crc")
 COUNTER_NAMES = (
-    "batches", "bwt_rounds", "host_syncs", "decode_headers", "decode_members",
+    "batches", "bwt_rounds", "host_syncs", "decode_headers", "decode_members", "decode_rle1_device",
     *(f"decode_fallbacks.{r}" for r in FALLBACK_REASONS),
 )
 COUNTERS: dict[str, int] = dict.fromkeys(COUNTER_NAMES, 0)
@@ -97,10 +100,12 @@ def wait():
 def counters() -> dict[str, int]:
     """A copy of ``COUNTERS``, with each kernel's launches so far as
     ``launches.<kernel>``."""
-    from bz2tpu_torch.ops import bwt_cuda, crc_cuda, dec_cuda, huffman_cuda, mtf_cuda, mtf_dec_cuda, rle1_cuda
+    from bz2tpu_torch.ops import (
+        bwt_cuda, crc_cuda, dec_cuda, huffman_cuda, mtf_cuda, mtf_dec_cuda, rle1_cuda, rle1_dec_cuda,
+    )
 
     snap = dict(COUNTERS)
-    for mod in (bwt_cuda, mtf_cuda, huffman_cuda, dec_cuda, mtf_dec_cuda, crc_cuda, rle1_cuda):
+    for mod in (bwt_cuda, mtf_cuda, huffman_cuda, dec_cuda, mtf_dec_cuda, crc_cuda, rle1_cuda, rle1_dec_cuda):
         snap.update((f"launches.{k}", v) for k, v in mod.LAUNCHES.items())
     return snap
 

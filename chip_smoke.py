@@ -35,7 +35,11 @@ Phases (any failure exits non-zero; nothing is caught):
      first-level tables against their plain version and the symbols whose
      window reads a 1 MiB LUT row; mtf_dec's steps that are trailing
      padding and those the kernel skips; for both, the kernels' device time
-     by torch.profiler and their time as a multiple of the bound); and on every
+     by torch.profiler and their time as a multiple of the bound); rle1_dec
+     (both launches) on the rows a level-9 decode of 8 x 900 kB of the
+     benchmark's enwik mix hands it, with its output bound, crc_ranges over
+     its output, the decode's whole step and the C core's inverse_rle1 over
+     the same rows on the host; and on every
      batch of the port's and stdlib's 16 MB streams dec_chain's share of
      steps whose window missed (tools/time_dec_chain.py times the kernel
      of two checkouts on those batches); the intake kernels against their
@@ -123,10 +127,10 @@ Each phase's main path runs with every launch count set to 0 just before
 it, and fails if a kernel of that path was not launched.
 The script imports nothing of JAX or of the JAX package. The line before
 the last is the kernel table as JSON: per kernel its launches on the 16 MB
-compress (dec_chain, dec_symbols, mtf_dec: on the decode of the port's
-stream; crc_ranges, block_cuts: on its intake compress), its time and
-its plain version's at the shapes above (dec_symbols, mtf_dec,
-crc_ranges and block_cuts also their device time, device_ms, and the
+compress (dec_chain, dec_symbols, mtf_dec, rle1_dec: on the decode of the
+port's stream; crc_ranges, block_cuts: on its intake compress), its time
+and its plain version's at the shapes above (dec_symbols, mtf_dec,
+crc_ranges, block_cuts and rle1_dec also their device time, device_ms, and the
 same calls queued behind a sleep on the device, queued_ms), the
 library call's where one
 computes the same function, and its bound: the bytes it must move (inputs
@@ -345,9 +349,11 @@ KERNELS = {
     "mtf_dec": ("bz2tpu_torch/csrc/mtf_dec.cu", "bz2tpu/ops/mtf_dec.py:110"),
     "crc_ranges": ("bz2tpu_torch/csrc/crc_ranges.cu", "bz2tpu/ops/crc.py:166"),
     "block_cuts": ("bz2tpu_torch/csrc/block_cuts.cu", "bz2tpu/ops/rle1.py:162"),
+    "rle1_dec": ("bz2tpu_torch/csrc/rle1_dec.cu", "none: bz2tpu/runtime/device_decode.py:285 inverts RLE1 on the host"),
 }
-DECODE_KERNELS = ("dec_chain", "dec_symbols", "mtf_dec")
+DECODE_KERNELS = ("dec_chain", "dec_symbols", "mtf_dec", "rle1_dec")
 INTAKE_KERNELS = ("crc_ranges", "block_cuts")
+ENWIK_SEED = 2**31 + 2020  # the enwik rows of rle1_dec_phase
 
 
 def decode_kernel_inputs(stream: bytes, dev) -> dict:
@@ -380,6 +386,87 @@ def decode_kernel_inputs(stream: bytes, dev) -> dict:
     finally:
         huffman_dec.decode_groups, mtf_dec.chunk_perms = real_groups, real_perms
     return captured
+
+
+def enwik_rows(dev, blocks: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows and lengths a level-9 decode of the benchmark's enwik mix
+    hands its inverse RLE1 (rle1_dec): the batch of ``blocks`` blocks of
+    900 kB, captured by wrapping device_decode.inverse_rle1_crc."""
+    from portbench import gen
+
+    from bz2tpu_torch.runtime import device_decode
+
+    mix = gen.load_mix("enwik")
+    mix["objects"] = [dict(mix["objects"][0], bytes=(blocks + 1) * 900_000)]
+    raw = gen.make_objects(mix, ENWIK_SEED)[0][1]
+    stream = stdlib_bz2.compress(raw, 9)
+    seen = []
+    real = device_decode.inverse_rle1_crc
+
+    def capture(rows, n):
+        seen.append((rows.clone(), n.clone()))
+        return real(rows, n)
+
+    device_decode.inverse_rle1_crc = capture
+    try:
+        if device_decode._decompress_device_inner(stream, True, dev) != raw:
+            raise AssertionError("the device decode of the enwik stream differs from its input")
+    finally:
+        device_decode.inverse_rle1_crc = real
+    return max(seen, key=lambda rn: rn[0].shape[0])
+
+
+def rle1_dec_phase(dev) -> dict:
+    """rle1_dec (both launches) at the main path's shape, 8 rows of 900 kB
+    of enwik, against its plain version on the card (exact), with its byte
+    bound; beside it crc_ranges over its output, the whole step as the
+    decode runs it (the two launches, the sizes read between them, D5 and
+    the copy back), and the host C core's inverse_rle1 over the same rows
+    one after another, as the decode ran it before."""
+    from bz2tpu_torch import native
+    from bz2tpu_torch.ops import crc, rle1_dec, rle1_dec_cuda
+
+    rows, n = enwik_rows(dev)
+    plan, offsets = rle1_dec.parse_ref(rows, n)
+    total = int(offsets[-1])
+    del plan
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+
+    def kernel():
+        prefix, offs = rle1_dec_cuda.parse(rows, n)
+        return rle1_dec_cuda.expand(rows, n, prefix, offs, out), offs
+
+    def plain():
+        plan, offs = rle1_dec.parse_ref(rows, n)
+        return rle1_dec.expand_ref(plan, torch.empty(total, dtype=torch.uint8, device=dev)), offs
+
+    n_in = int(n.sum())
+    bound = rle1_dec.out_bound(rows.shape[0], int(n.max()))
+    print(f"rle1_dec shapes: rows {tuple(rows.shape)}, n {n.tolist()}; {n_in} B in, {total} B out "
+          f"(the output bound {bound} B, {bound / 2**20:.1f} MiB)")
+    # Its bytes: each input byte read once, each output byte written once.
+    row = compare("rle1_dec", kernel, plain, 10, nbytes=n_in + total, device=True)
+    starts, ends = offsets[:-1].contiguous(), offsets[1:].contiguous()
+    row["crc_ms"] = cuda_ms(lambda: crc.crc32_ranges(out, starts, ends), 10)
+    steps = sorted(timed(lambda: rle1_dec.inverse_rle1_crc(rows, n)[0].cpu())[1] for _ in range(7))
+    row["step_ms"] = steps[3] * 1e3
+    row["copy_ms"] = sorted(timed(lambda: out.cpu())[1] for _ in range(7))[3] * 1e3
+    flat, host_ends, crcs = rle1_dec.inverse_rle1_crc(rows, n)
+    host_rows = [rows[r, : int(n[r])].cpu().numpy().tobytes() for r in range(rows.shape[0])]
+    t0 = time.perf_counter()
+    host = [native.inverse_rle1(r) for r in host_rows]
+    row["host_native_ms"] = (time.perf_counter() - t0) * 1e3
+    got = flat.cpu().numpy()
+    for r, (data, crc_r) in enumerate(host):
+        if got[host_ends[r] : host_ends[r + 1]].tobytes() != data or int(crcs[r]) != crc_r:
+            raise AssertionError(f"rle1_dec's row {r} differs from the C core's inverse_rle1")
+    row["out_bound_bytes"], row["out_bytes"] = bound, total
+    print(f"rle1_dec: crc_ranges over its output {row['crc_ms']:.4f} ms; the decode's step (both launches, "
+          f"the sizes read, D5, the copy back of {total} B) {row['step_ms']:.4f} ms (median of 7), the copy "
+          f"back alone {row['copy_ms']:.4f} ms; the host C core's "
+          f"inverse_rle1 over the same {rows.shape[0]} rows one after another {row['host_native_ms']:.4f} ms "
+          f"({n_in / row['host_native_ms'] / 1e3:.1f} MB/s in); bytes and CRCs equal to the C core's: True")
+    return row
 
 
 def intake_kernel_inputs(corpus: bytes, dev) -> dict:
@@ -489,7 +576,7 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     BZ2File, the device backend and --recover, on the 16 MB corpus."""
     import bz2tpu_torch
     from bz2tpu_torch import native
-    from bz2tpu_torch.ops import bwt_cuda, dec_cuda, huffman_cuda, mtf_cuda, mtf_dec_cuda
+    from bz2tpu_torch.ops import bwt_cuda, dec_cuda, huffman_cuda, mtf_cuda, mtf_dec_cuda, rle1_dec_cuda
     from bz2tpu_torch.runtime import stream
 
     mb = len(corpus) / 1e6
@@ -610,7 +697,7 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     with open(dev_out, "rb") as f:
         if rc != 0 or f.read() != corpus:
             raise AssertionError(f"--backend device --dec did not give the corpus back: {err}")
-    dec_launches = {**dec_cuda.LAUNCHES, **mtf_dec_cuda.LAUNCHES}
+    dec_launches = {**dec_cuda.LAUNCHES, **mtf_dec_cuda.LAUNCHES, **rle1_dec_cuda.LAUNCHES}
     for name in DECODE_KERNELS:
         if dec_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by --backend device --dec")
@@ -1126,7 +1213,7 @@ def main() -> int:
     from bz2tpu_torch import _build
     from bz2tpu_torch.format import constants as C
     from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda
-    from bz2tpu_torch.ops import crc, crc_cuda, mtf_dec_cuda, rle1, rle1_cuda
+    from bz2tpu_torch.ops import crc, crc_cuda, mtf_dec_cuda, rle1, rle1_cuda, rle1_dec_cuda
     from bz2tpu_torch.ops.intake import chunk_capacity
     from bz2tpu_torch.ops.pipeline import encode_batch
     from bz2tpu_torch.runtime import compressor, device_decode
@@ -1266,7 +1353,7 @@ def main() -> int:
           f"per-block sorts {sum(map(sum, rounds))}")
 
     all_counts = (bwt_cuda.LAUNCHES, mtf_cuda.LAUNCHES, huffman_cuda.LAUNCHES, dec_cuda.LAUNCHES,
-                  mtf_dec_cuda.LAUNCHES, crc_cuda.LAUNCHES, rle1_cuda.LAUNCHES)
+                  mtf_dec_cuda.LAUNCHES, crc_cuda.LAUNCHES, rle1_cuda.LAUNCHES, rle1_dec_cuda.LAUNCHES)
     encode_kernels = ("bwt_sort", "bwt_rerank", "mtf_ranks", "huffman_plan")
     n_batches = -(-len(blocks) // DEFAULT_BATCH)
     torch.cuda.reset_peak_memory_stats()
@@ -1390,6 +1477,8 @@ def main() -> int:
                                lambda: mtf_dec_cuda.chunk_perms_ref(js), 3, nbytes=4 * js.numel(),
                                ops=int(js.long().sum()) + js.numel(), device=True)
     del js, captured, bt, words, tbl, n_groups, walked, padded
+    # rle1_dec on 8 rows of 900 kB of enwik, as the level-9 decode hands them.
+    stats["rle1_dec"] = rle1_dec_phase(dev)
     # crc_ranges and block_cuts at the shapes of the intake's first chunk
     # of the corpus: its window, its pieces' sums and its blocks' ranges.
     corpus_arr = np.frombuffer(corpus, np.uint8)
@@ -1502,7 +1591,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     def decode_launches() -> dict:
-        got = {**dec_cuda.LAUNCHES, **mtf_dec_cuda.LAUNCHES}
+        got = {**dec_cuda.LAUNCHES, **mtf_dec_cuda.LAUNCHES, **rle1_dec_cuda.LAUNCHES}
         return {name: got[name] for name in DECODE_KERNELS}
 
     zero(*all_counts)

@@ -6,7 +6,11 @@ chunk, once each per intake call of an escalating input),
 decompress_device (with its dec_symbols and mtf_dec kernels at the
 decode's own shapes, on a good and a corrupt stream; dec_symbols' first
 pass, and both on random inputs, on tables whose codes reach 20 bits and
-on chunks that end in zeros at every offset), the stream and file layer (compress_file, a
+on chunks that end in zeros at every offset; rle1_dec and crc_ranges, the
+inverse RLE1 and block CRCs, on every row family of
+tests/rle1_dec_cases.py, a decode's rows, rows off alignment and 8 rows at
+the output bound, and in a decode that never calls the host's inverse
+RLE1), the stream and file layer (compress_file, a
 checkpoint resumed, BZ2File), the per-block encode of the block mesh
 (encode_blocks, pack_blocks then concat_block_words), the per-block
 compress path (BZ2TPU_DEVICE_STITCH=0) and an exported build with kernels
@@ -27,15 +31,18 @@ import torch
 
 import bz2tpu_torch
 from bz2tpu_torch.ops import bwt, bwt_cuda, dec_cuda, huffman, huffman_cuda, huffman_dec, mtf, mtf_cuda, mtf_dec
-from bz2tpu_torch.ops import crc, crc_cuda, intake, mtf_dec_cuda, rle1, rle1_cuda
+from bz2tpu_torch.ops import crc, crc_cuda, intake, mtf_dec_cuda, rle1, rle1_cuda, rle1_dec, rle1_dec_cuda
 from bz2tpu_torch.ops.bwt import bwt_stage
 from bz2tpu_torch.format import constants as C
 from bz2tpu_torch.format.crc32 import crc32, crc32_serial
 from bz2tpu_torch.runtime import compressor, device_decode
 from bz2tpu_torch.runtime.compressor import _batch_tensors, split_blocks
+from bz2tpu_torch.oracle.decoder import Bz2CrcError
+from bz2tpu_torch.utils import profiling
 from bz2tpu_torch.utils.corpus import make_mixed_corpus
 
 from dec_kernel_cases import deep_lengths, table_tensors, trailing_zero_rows
+from rle1_dec_cases import FAMILIES, as_batch, decode_rows, stdlib_stream, text
 from huffman_cases import PLAN_CASES, plan_case
 
 pytestmark = pytest.mark.cuda
@@ -571,6 +578,80 @@ def test_decode_kernels_on_a_stream_match_plain(cuda, monkeypatch, corrupt):
     out = device_decode._decompress_device_inner(comp, True, cuda)
     assert (out is None) if corrupt else (out == data)
     assert checked["dec_symbols"] > 0 and checked["mtf_dec"] > 0
+
+
+def _rle1_pair(rows, n):
+    """D7 and D5 on the card against the plain version on the CPU: the
+    batch's bytes, each row's place and its CRC; two D7 launches and one
+    D5 launch."""
+    before = (rle1_dec_cuda.LAUNCHES["rle1_dec"], crc_cuda.LAUNCHES["crc_ranges"])
+    flat, ends, crcs = rle1_dec.inverse_rle1_crc(rows, n)
+    torch.cuda.synchronize()
+    assert (rle1_dec_cuda.LAUNCHES["rle1_dec"], crc_cuda.LAUNCHES["crc_ranges"]) == (before[0] + 2, before[1] + 1)
+    want_flat, want_ends, want_crcs = rle1_dec.inverse_rle1_crc(rows.cpu(), n.cpu())
+    assert ends == want_ends
+    _equal(flat.cpu(), want_flat)
+    _equal(crcs.cpu(), want_crcs)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_rle1_dec_kernel_matches_plain(cuda, family):
+    rows = FAMILIES[family]()
+    _rle1_pair(*as_batch(rows, cuda))
+    for row in rows:
+        _rle1_pair(*as_batch([row], cuda))
+
+
+@pytest.mark.parametrize("level", [1, 9])
+def test_rle1_dec_kernel_on_the_rows_of_a_decode(cuda, level):
+    seen = decode_rows(stdlib_stream(level), cuda)
+    assert seen
+    for rows, n in seen:
+        _rle1_pair(rows, n)
+
+
+def test_rle1_dec_kernel_off_16_byte_alignment_with_a_row_stride(cuda):
+    rows, n = as_batch(FAMILIES["rle1_of_runs_and_text"]() + FAMILIES["unequal_rows"](), cuda)
+    wide = torch.zeros(rows.shape[0], rows.shape[1] + 21, dtype=torch.uint8, device=cuda)
+    wide[:, 5 : 5 + rows.shape[1]] = rows
+    _rle1_pair(wide[:, 5 : 5 + rows.shape[1]], n)
+
+
+def test_rle1_dec_kernel_at_the_main_path_shape_and_its_bound(cuda):
+    # 8 rows of 900,000 bytes: text, then every fifth byte a count of 255,
+    # which writes the bound, 8 x 46,620,000 bytes.
+    _rle1_pair(*as_batch([text(900_000, 60 + r) for r in range(8)], cuda))
+    rows, n = as_batch([b"qqqq\xff" * 180_000] * 8, cuda)
+    flat, ends, crcs = rle1_dec.inverse_rle1_crc(rows, n)
+    assert ends == [r * 46_620_000 for r in range(9)] == [r * rle1_dec.out_bound(1, 900_000) for r in range(9)]
+    assert bool((flat == ord("q")).all())
+    assert crcs.tolist() == [crc32(b"q" * 46_620_000)] * 8
+
+
+def test_decompress_device_on_card_runs_the_inverse_rle1_there(cuda, monkeypatch):
+    def host_rle1(*a):
+        raise AssertionError("the decode on the card called the host's inverse RLE1")
+
+    monkeypatch.setattr(device_decode.native, "inverse_rle1", host_rle1)
+    one = b"".join(_corpus(kind, 300_000, 71 + i).tobytes() for i, kind in enumerate(("text", "runs", "random")))
+    members = [stdlib_bz2.compress(text(60_000, 72 + m), 9) for m in range(5)]
+    for stream, data in ((stdlib_bz2.compress(one, 1), one), (stdlib_bz2.compress(one, 9), one),
+                         (b"".join(members), b"".join(map(stdlib_bz2.decompress, members)))):
+        before = (profiling.counters(), dict(rle1_dec_cuda.LAUNCHES), dict(crc_cuda.LAUNCHES))
+        assert device_decode._decompress_device_inner(stream, True, cuda) == data
+        after = profiling.counters()
+        n_batches = len(device_decode.batches(device_decode.parse_blocks(stream)[0]))
+        headers = after["decode_headers"] - before[0]["decode_headers"]
+        assert after["decode_rle1_device"] - before[0]["decode_rle1_device"] == headers > 0
+        assert rle1_dec_cuda.LAUNCHES["rle1_dec"] - before[1]["rle1_dec"] == 2 * n_batches
+        assert crc_cuda.LAUNCHES["crc_ranges"] - before[2]["crc_ranges"] == n_batches
+    # A block CRC that does not match: the first member raises, a later one
+    # goes to the host decoder.
+    bad = bytearray(members[0])
+    bad[11] ^= 0x01  # the block CRC of the member's block (bits 80-111)
+    with pytest.raises(Bz2CrcError):
+        device_decode._decompress_device_inner(bytes(bad), True, cuda)
+    assert device_decode._decompress_device_inner(members[0] + bytes(bad), True, cuda) is None
 
 
 def test_compress_device_intake_on_card_matches_cpu(cuda):

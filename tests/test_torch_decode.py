@@ -517,6 +517,55 @@ def test_decompress_device_timings_cover_every_stage(rng):
     assert set(timings) == {"parse", "members", "tables", "huffman", "mtf", "ibwt", "rle1_crc"}
 
 
+def _moved_counters(fn):
+    before = profiling.counters()
+    out = fn()
+    after = profiling.counters()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def test_decompress_device_inverts_rle1_on_the_device_for_every_block(rng, monkeypatch):
+    # The host's inverse RLE1 is never called: each batch's rows become its
+    # final bytes and CRCs on the device (the plain version on the CPU).
+    def host_rle1(*a):
+        raise AssertionError("the device decode called the host's inverse RLE1")
+
+    monkeypatch.setattr(device_decode.native, "inverse_rle1", host_rle1)
+    data = make_corpus(rng, "text", 260_000) + make_corpus(rng, "runs", 90_000)
+    comp = stdlib_bz2.compress(data, 1)
+    out, moved = _moved_counters(lambda: device_decode.decompress_device(comp, device="cpu"))
+    assert out == data
+    headers, _ = port_native.scan_blocks(comp)
+    assert len(headers) >= 3
+    assert moved == {"decode_headers": len(headers), "decode_members": 1, "decode_rle1_device": len(headers)}
+
+
+def test_decompress_device_first_member_block_crc_mismatch_raises(rng):
+    comp = bytearray(stdlib_bz2.compress(make_corpus(rng, "text", 40_000), 9))
+    comp[11] ^= 0x01  # the stored CRC of the only block (bits 80-111)
+    with pytest.raises(port_decoder.Bz2CrcError, match="block CRC mismatch"):
+        device_decode._decompress_device_inner(bytes(comp), True, CPU)
+    with pytest.raises(port_decoder.Bz2CrcError):
+        device_decode.decompress_device(bytes(comp), device="cpu")
+    with pytest.raises(jax_decoder.Bz2CrcError):
+        jax_device_decode.decompress_device(bytes(comp))
+    # Unverified, the device path keeps the bytes it decoded, as the host
+    # decoder does.
+    out = device_decode._decompress_device_inner(bytes(comp), False, CPU)
+    assert out is not None and out == port_host_decompress(bytes(comp), verify_crc=False)
+
+
+def test_decompress_device_timings_hold_every_lap_over_batches_and_members(rng):
+    data = [make_corpus(rng, "text", 230_000), make_corpus(rng, "random", 120_000)]
+    comp = stdlib_bz2.compress(data[0], 1) + stdlib_bz2.compress(data[1], 9)
+    parsed, _ = device_decode.parse_blocks(comp)
+    assert len(device_decode.batches(parsed)) >= 2
+    timings = {}
+    assert device_decode.decompress_device(comp, device="cpu", timings=timings) == b"".join(data)
+    assert set(timings) == {"parse", "members", "tables", "huffman", "mtf", "ibwt", "rle1_crc"}
+    assert all(v > 0 for v in timings.values())
+
+
 def test_decompress_device_needs_cuda_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

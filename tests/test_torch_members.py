@@ -99,7 +99,7 @@ def test_members_decode_on_the_device_path(chain):
     got, moved = _moved(lambda: device_decode._decompress_device_inner(stream, True, CPU))
     assert got == want
     headers, _ = device_decode.native.scan_blocks(stream)
-    assert moved == {"decode_headers": len(headers), "decode_members": n_members}
+    assert moved == {"decode_headers": len(headers), "decode_members": n_members, "decode_rle1_device": len(headers)}
     assert device_decode.decompress_device(stream, device="cpu") == want
 
 
@@ -149,8 +149,12 @@ def test_irregular_members_go_to_the_host(case):
     stream, reason = _irregular()[case]
     got, moved = _moved(lambda: device_decode._decompress_device_inner(stream, True, CPU))
     assert got is None
-    moved.pop("decode_headers", None)
+    headers = moved.pop("decode_headers", 0)
     moved.pop("decode_members", None)
+    # A later member's CRC is checked after every block's inverse RLE1 and
+    # CRC ran on the device; a batch over its level never gets there.
+    rle1 = moved.pop("decode_rle1_device", 0)
+    assert rle1 == headers if case.endswith("_crc") else rle1 < headers or rle1 == 0
     assert moved == {f"decode_fallbacks.{reason}": 1}
     want = _outcome(port_host_decompress, stream)
     assert type(want).__name__ == type(_outcome(jax_host_decompress, stream)).__name__
@@ -160,6 +164,20 @@ def test_irregular_members_go_to_the_host(case):
         assert type(out) is type(want) and str(out) == str(want)
     else:
         assert out == want == jax_host_decompress(stream)
+
+
+def test_a_later_members_bad_block_crc_is_found_after_the_device_rle1():
+    # Every block's inverse RLE1 and CRC run on the device first; the host
+    # then finds the second member's stored CRC wrong and hands the stream
+    # to the host decoder, which keeps the first member.
+    stream, _ = _irregular()["later_block_crc"]
+    got, moved = _moved(lambda: device_decode._decompress_device_inner(stream, True, CPU))
+    assert got is None
+    assert moved == {"decode_headers": 2, "decode_members": 2, "decode_rle1_device": 2, "decode_fallbacks.members": 1}
+    want = _outcome(port_host_decompress, stream)
+    assert _outcome(lambda s: device_decode.decompress_device(s, device="cpu"), stream) == want
+    # Unverified, the device path keeps both members' bytes.
+    assert device_decode._decompress_device_inner(stream, False, CPU) == port_host_decompress(stream, verify_crc=False)
 
 
 def test_non_magic_junk_after_the_last_member_is_ignored():

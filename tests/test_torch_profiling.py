@@ -189,8 +189,12 @@ def test_decode_fallback_reasons(monkeypatch, reason):
     for stream in streams:
         got, moved = _delta(lambda: device_decode._decompress_device_inner(stream, True, CPU))
         assert got is None
-        assert moved.pop("decode_headers", 0) == (len(device_decode.native.scan_blocks(stream)[0]) if parsed else 0)
+        headers = len(device_decode.native.scan_blocks(stream)[0]) if parsed else 0
+        assert moved.pop("decode_headers", 0) == headers
         assert moved.pop("decode_members", 0) == int(parsed)
+        # A stream CRC is checked after every block's inverse RLE1 and CRC
+        # ran on the device; a batch that fails validation never gets there.
+        assert moved.pop("decode_rle1_device", 0) == (headers if reason == "stream_crc" else 0)
         assert moved == {f"decode_fallbacks.{reason}": 1}
     if reason == "validate":
         # decompress_device hands it to the host decoder, counted once; two
@@ -201,7 +205,7 @@ def test_decode_fallback_reasons(monkeypatch, reason):
         two = stdlib_bz2.compress(data, 1) + stdlib_bz2.compress(b"second member", 9)
         out, moved = _delta(lambda: device_decode.decompress_device(two, device="cpu"))
         assert out == data + b"second member"
-        assert moved == {"decode_headers": 2, "decode_members": 2}
+        assert moved == {"decode_headers": 2, "decode_members": 2, "decode_rle1_device": 2}
 
 
 def test_decode_headers_count_the_blocks_decoded_on_the_card():
@@ -211,7 +215,7 @@ def test_decode_headers_count_the_blocks_decoded_on_the_card():
     assert len(headers) == 4
     out, moved = _delta(lambda: device_decode.decompress_device(stream, device="cpu"))
     assert out == data
-    assert moved == {"decode_headers": len(headers), "decode_members": 1}
+    assert moved == {"decode_headers": len(headers), "decode_members": 1, "decode_rle1_device": len(headers)}
 
 
 def test_counters_snapshot():
@@ -220,7 +224,7 @@ def test_counters_snapshot():
     launches = {k for k in snap if k.startswith("launches.")}
     assert {"launches.bwt_sort", "launches.bwt_rerank", "launches.mtf_ranks", "launches.huffman_plan",
             "launches.dec_chain", "launches.dec_symbols", "launches.mtf_dec", "launches.crc_ranges",
-            "launches.block_cuts"} == launches
+            "launches.block_cuts", "launches.rle1_dec"} == launches
     snap["batches"] += 1  # a copy: the live counters do not move
     assert profiling.counters()["batches"] == snap["batches"] - 1
     with pytest.raises(KeyError):
