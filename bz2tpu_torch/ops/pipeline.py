@@ -11,8 +11,6 @@ output is bit-identical at any width >= max(n_sym).
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from bz2tpu_torch.ops.bwt import bwt_stage
@@ -20,7 +18,7 @@ from bz2tpu_torch.ops.emit import pack_blocks, pack_blocks_concat
 from bz2tpu_torch.ops.huffman import huffman_assign, max_selectors
 from bz2tpu_torch.ops.mtf import mtf_rle2_plan as mtf_plan_stage
 from bz2tpu_torch.ops.mtf import rle2_out
-from bz2tpu_torch.utils.profiling import span, wait
+from bz2tpu_torch.utils.profiling import StageClock, lap, span, wait
 
 __all__ = [
     "bwt_stage", "mtf_plan_stage", "emit_huff_pack_stage", "emit_huff_pack_concat_stage",
@@ -28,40 +26,15 @@ __all__ = [
 ]
 
 
-class StageClock:
-    """Adds each stage's seconds to ``timings[name]``. Every lap waits for
-    the device, so a clocked run is slightly slower than an unclocked one."""
-
-    def __init__(self, timings: dict, device: torch.device):
-        self.timings = timings
-        self.device = device
-        self.t = self._now()
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        t = self._now()
-        self.timings[name] = self.timings.get(name, 0.0) + (t - self.t)
-        self.t = t
-
-
-def _lap(clock: StageClock | None, name: str) -> None:
-    if clock is not None:
-        clock.lap(name)
-
-
 def _emit_huff(plan, *, width: int, clock: StageClock | None):
     """RLE2 emission and Huffman planning at ``width`` (>= max n_sym)."""
     maxsel = max_selectors(width - 2)
     with span("bz2.rle2_out"):
         sym = rle2_out(plan, width)
-        _lap(clock, "rle2_out")
+        lap(clock, "rle2_out")
     with span("bz2.huffman"):
         hp = huffman_assign(sym, plan["n_sym"], plan["n_in_use"], maxsel)
-        _lap(clock, "huffman")
+        lap(clock, "huffman")
     return sym, hp, maxsel
 
 
@@ -70,12 +43,12 @@ def _bwt_mtf(blocks, ns, clock: StageClock | None):
     read back: (orig_ptr, plan, width)."""
     with span("bz2.bwt"):
         last, orig_ptr = bwt_stage(blocks, ns)
-        _lap(clock, "bwt")
+        lap(clock, "bwt")
     with span("bz2.mtf"):
         plan = mtf_plan_stage(last, ns)
         with wait():
             width = int(plan["n_sym"].max())
-        _lap(clock, "mtf")
+        lap(clock, "mtf")
     return orig_ptr, plan, width
 
 
@@ -90,7 +63,7 @@ def emit_huff_pack_concat_stage(plan, orig_ptr, crcs, *, width: int, clock: Stag
             plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
             maxsel=maxsel,
         )
-        _lap(clock, "pack")
+        lap(clock, "pack")
     return out
 
 
@@ -107,7 +80,7 @@ def emit_huff_pack_stage(plan, orig_ptr, crcs, *, width: int, clock: StageClock 
             plan["used"], hp["n_groups"], hp["n_selectors"], hp["selector_mtf"],
             maxsel=maxsel,
         )
-        _lap(clock, "pack")
+        lap(clock, "pack")
     meta = torch.stack([t.to(torch.int32) for t in (
         orig_ptr, plan["n_sym"], plan["n_in_use"], hp["n_groups"], hp["n_selectors"], total_bits)], 1)
     return {"n_groups": hp["n_groups"], "n_selectors": hp["n_selectors"],
@@ -120,7 +93,7 @@ def encode_batch(blocks, ns, crcs, timings: dict | None = None):
     blocks (B, cap) uint8, ns (B,) int32, crcs (B,) int64 (uint32 values).
     Returns (words (W,) int64 of 32-bit MSB-first words, total_bits 0-dim
     int64). With ``timings``, per-stage seconds accumulate under "bwt",
-    "mtf", "rle2_out", "huffman" and "pack" (see StageClock).
+    "mtf", "rle2_out", "huffman" and "pack" (see utils/profiling.StageClock).
     """
     with span("bz2.encode"):
         clock = None if timings is None else StageClock(timings, blocks.device)

@@ -32,8 +32,8 @@ import torch
 from bz2tpu_torch.format import constants as C
 from bz2tpu_torch.format.crc32 import stream_crc
 from bz2tpu_torch.ops.emit import concat_block_words, words_to_bytes
-from bz2tpu_torch.ops.pipeline import StageClock
 from bz2tpu_torch.parallel.mesh import BlockMesh, all_gather_padded, gather_ints
+from bz2tpu_torch.utils.profiling import StageClock, lap
 
 _HEADER_BITS = 32  # "BZh" + level digit
 _TRAILER_BITS = 48 + 32  # end marker + stream CRC
@@ -72,20 +72,16 @@ def stitch_stream_shard(words, bits, crcs, n_blocks_local: int, level: int, *, m
     total_bits counting header, blocks and trailer. With ``timings``, the
     seconds of each step accumulate under "concat", "exchange" (the small
     all-gather), "segments" (shift and all-gather), "place" and "bytes"
-    (see ops/pipeline.StageClock).
+    (see utils/profiling.StageClock).
     """
     dev = mesh.device
     clock = None if timings is None else StageClock(timings, dev)
-
-    def lap(name: str) -> None:
-        if clock is not None:
-            clock.lap(name)
 
     cat, local_bits = concat_block_words(words, bits)
     local_bits = int(local_bits)
     n_words = (local_bits + 31) >> 5
     fold = stream_crc(crcs[:n_blocks_local].tolist())
-    lap("concat")
+    lap(clock, "concat")
     # One small all-gather: every rank's bits, fold, live count and
     # shifted-segment length (its words plus the spill word).
     every = gather_ints([local_bits, fold, n_blocks_local, n_words + 1], mesh)
@@ -96,11 +92,11 @@ def stitch_stream_shard(words, bits, crcs, n_blocks_local: int, level: int, *, m
     crc = 0
     for _, f, k, _ in every:
         crc = _rotl(crc, k) ^ f
-    lap("exchange")
+    lap(clock, "exchange")
 
     seg = _shift_segment(cat[:n_words], offsets[mesh.rank] & 31)
     segs, _ = all_gather_padded(as_int32(seg), mesh, shapes=[[e[3]] for e in every])
-    lap("segments")
+    lap(clock, "segments")
     out = torch.zeros((total_bits + 31) // 32 + 3, dtype=torch.int64, device=dev)
     for off, s, e in zip(offsets, segs, every):
         w0 = off >> 5
@@ -112,9 +108,9 @@ def stitch_stream_shard(words, bits, crcs, n_blocks_local: int, level: int, *, m
                         dtype=torch.int64, device=dev)
     w0 = tail_off >> 5
     out[w0 : w0 + 4] += _shift_segment(tail, tail_off & 31)
-    lap("place")
+    lap(clock, "place")
     stream = words_to_bytes(out, total_bits)
-    lap("bytes")
+    lap(clock, "bytes")
     return stream, total_bits
 
 

@@ -7,9 +7,10 @@ CRC run on the host; each batch of at most ``parallel`` blocks goes through
 ops/pipeline.encode_batch on the device, and its packed words come back in
 one device-to-host copy. Batches are not padded to a fixed size and there
 is no dispatch-ahead: eager torch has no per-shape compile to amortise.
-With ``BZ2TPU_DEVICE_STITCH=0`` each block comes back on its own
-(_encode_batches, the path that drives the block mesh in a multi-process
-job) and the host stitches them, as in bz2tpu.
+encode_parts is the one loop over a stream's host blocks, which compress
+and runtime/stream.py share. With ``BZ2TPU_DEVICE_STITCH=0`` each block
+comes back on its own (_encode_batches, the path that drives the block
+mesh in a multi-process job) and the host stitches them, as in bz2tpu.
 """
 
 from __future__ import annotations
@@ -27,16 +28,17 @@ from bz2tpu_torch.format.crc32 import stream_crc
 from bz2tpu_torch.native import HAVE_NATIVE  # noqa: F401 - whether split_blocks runs in C
 from bz2tpu_torch.oracle.encoder import Rle1Block, rle1_split
 from bz2tpu_torch.ops.intake import chunk_capacity, device_intake
-from bz2tpu_torch.ops.pipeline import StageClock, encode_batch, encode_blocks
+from bz2tpu_torch.ops.pipeline import encode_batch
 from bz2tpu_torch.utils.device import resolve_device
-from bz2tpu_torch.utils.profiling import count, span, wait
+from bz2tpu_torch.utils.profiling import StageClock, count, lap, span, wait
 
 DEFAULT_BATCH = 8
 
 # Default on: each batch's blocks concatenate on the device and come back as
 # one bitstream. BZ2TPU_DEVICE_STITCH=0 takes the per-block path
-# (_encode_batches), the only one that drives the block mesh. The name and
-# its meaning are bz2tpu's, so one switch sets both packages.
+# (_encode_batches), the only one that drives the block mesh. Only
+# encode_parts reads it. The name and its meaning are bz2tpu's, so one
+# switch sets both packages.
 _DEVICE_STITCH = os.environ.get("BZ2TPU_DEVICE_STITCH", "1") == "1"
 
 META = ("orig_ptr", "n_sym", "n_in_use", "n_groups", "n_selectors", "total_bits")
@@ -90,13 +92,18 @@ def _encode(blocks, ns, crcs, timings: dict | None = None) -> Part:
         return words[:nw].cpu().numpy().astype(">u4").view(np.uint8), total
 
 
+def _trailer(s_crc: int) -> Part:
+    """The end marker and the stream CRC ``s_crc``."""
+    tail = BitWriter()
+    tail.write_bits(48, C.STREAM_END_MARKER)
+    tail.write_bits(32, s_crc)
+    return _bits(tail)
+
+
 def _finish(parts: list[Part], block_crcs: list[int]) -> bytes:
     """Append the end marker and stream CRC, and stitch."""
     with span("bz2.stitch"):
-        tail = BitWriter()
-        tail.write_bits(48, C.STREAM_END_MARKER)
-        tail.write_bits(32, stream_crc(block_crcs))
-        packed, _ = concat_bitstreams([*parts, _bits(tail)])
+        packed, _ = concat_bitstreams([*parts, _trailer(stream_crc(block_crcs))])
         return packed.tobytes()
 
 
@@ -137,58 +144,69 @@ def _encode_batches(blocks, batch: int, device, timings: dict | None = None):
     n_selectors and total_bits (ints), and words (uint32: the block's
     complete bitstream, header included, in ceil(total_bits / 32) words).
 
-    Port of bz2tpu.runtime.compressor._encode_batches. Where the default
-    process group has S > 1 ranks and S divides ``batch``, each batch goes
-    through the block mesh: padded to a multiple of S with one-byte rows,
-    each rank encodes its rows on its own device (a "cuda" device with no
-    index means the rank's card, parallel/mesh.block_mesh) and gather_blocks
-    brings every rank's rows to every rank. Every rank must pass the same
+    Port of bz2tpu.runtime.compressor._encode_batches. Each batch goes
+    through a block mesh: the default process group's where it has S > 1
+    ranks and S divides ``batch``, else one rank with no group. Padded to a
+    multiple of S with one-byte rows, each rank encodes its rows on its own
+    device (a "cuda" device with no index means the rank's card,
+    parallel/mesh.block_mesh) and gather_blocks brings every rank's rows to
+    every rank. Every rank must pass the same
     blocks and batch, and gets the same rows. Each batch's words come back
     in one copy, each row cut to its own bits and the rows packed end to
     end as int32 bit patterns, so that the all-gather and the copy carry the
     compressed bytes and not the rows' zero padding; the scalars in one
     copy more. ``timings`` as in ops/pipeline.encode_blocks, plus "gather"
-    (the mesh's all-gather) and "fetch" (the cut and the copies).
+    (the all-gather, on a group's mesh) and "fetch" (the cut and the copies).
     """
-    from bz2tpu_torch.parallel.mesh import block_mesh, encode_blocks_sharded, gather_blocks, pad_batch
+    from bz2tpu_torch.parallel.mesh import BlockMesh, block_mesh, encode_blocks_sharded, gather_blocks, pad_batch
     from bz2tpu_torch.parallel.stitch import as_int32
 
     dev = resolve_device(device)
     n_dev = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    mesh = None
     if n_dev > 1 and batch % n_dev == 0:
         mesh = block_mesh(device=None if dev.type == "cuda" and dev.index is None else dev)
-        dev = mesh.device
+    else:
+        mesh = BlockMesh(None, 0, 1, dev)
+    dev = mesh.device
+    # A group's ranks each hold the whole batch on the host and move only
+    # their rows to the card; one rank uploads it under bz2.upload.
+    host = dev if mesh.group is None else "cpu"
     for base in range(0, len(blocks), batch):
         chunk = blocks[base : base + batch]
         count("batches")
-        if mesh is None:
-            out = encode_blocks(*_batch_tensors(chunk, dev), timings=timings)
-            live = len(chunk)
-        else:
-            n_rows = pad_batch(len(chunk), mesh.size)
-            out = encode_blocks_sharded(*_batch_tensors(chunk, "cpu", n_rows), mesh=mesh, timings=timings)
-            rows = mesh.rows(n_rows)
-            live = max(0, min(rows.stop - rows.start, len(chunk) - rows.start))
+        n_rows = pad_batch(len(chunk), mesh.size)
+        out = encode_blocks_sharded(*_batch_tensors(chunk, host, n_rows), mesh=mesh, timings=timings)
+        rows = mesh.rows(n_rows)
+        live = max(0, min(rows.stop - rows.start, len(chunk) - rows.start))
         clock = None if timings is None else StageClock(timings, dev)
         words = out["words"]
         n_words = (out["meta"][:, 5].to(torch.int64) + 31) >> 5
         keep = torch.arange(words.shape[1], device=dev) < n_words[:, None]
         keep[live:] = False  # padding rows carry no words
-        shard = {"meta": out["meta"], "words": as_int32(words[keep])}
-        if mesh is not None:
-            shard = gather_blocks(shard, mesh)
-            if clock is not None:
-                clock.lap("gather")
+        shard = gather_blocks({"meta": out["meta"], "words": as_int32(words[keep])}, mesh)
+        if mesh.group is not None:
+            lap(clock, "gather")
         meta = shard["meta"].cpu().numpy()
         flat = shard["words"].cpu().numpy().view(np.uint32)
-        if clock is not None:
-            clock.lap("fetch")
+        lap(clock, "fetch")
         ends = np.cumsum((meta[: len(chunk), 5].astype(np.int64) + 31) >> 5)
         for i, row_words in enumerate(np.split(flat, ends[:-1])):
             row = {k: int(meta[i, j]) for j, k in enumerate(META)}
             row["words"] = row_words
             yield row
+
+
+def encode_parts(blocks, batch: int, device, timings: dict | None = None):
+    """The stream's Parts for ``blocks`` in stream order, the blocks
+    encoded in batches of ``batch`` on ``device``: one Part a batch (_encode,
+    the batch concatenated on the device), or with ``_DEVICE_STITCH`` off
+    one a block (_encode_batches). ``timings`` as there."""
+    if not _DEVICE_STITCH:
+        for row in _encode_batches(blocks, batch, device, timings):
+            yield row["words"].astype(">u4").view(np.uint8), row["total_bits"]
+        return
+    for base in range(0, len(blocks), batch):
+        yield _encode(*_batch_tensors(blocks[base : base + batch], device), timings=timings)
 
 
 def compress(
@@ -213,15 +231,10 @@ def compress(
     _check_level(level)
     with span("bz2.split"):
         blocks = split_blocks(arr, level)
-    parts = [_stream_header(level)]
-    if _DEVICE_STITCH:
-        batch = parallel or DEFAULT_BATCH
-        for base in range(0, len(blocks), batch):
-            parts.append(_encode(*_batch_tensors(blocks[base : base + batch], dev), timings=timings))
-    else:
-        for row in _encode_batches(blocks, _mesh_batch(len(blocks), parallel), dev, timings):
-            parts.append((row["words"].astype(">u4").view(np.uint8), row["total_bits"]))
-    return _finish(parts, [b.crc for b in blocks])
+    # bz2tpu's batch on both paths: where it is not parallel or
+    # DEFAULT_BATCH, the stream is shorter, so one batch either way.
+    parts = encode_parts(blocks, _mesh_batch(len(blocks), parallel), dev, timings)
+    return _finish([_stream_header(level), *parts], [b.crc for b in blocks])
 
 
 def compress_device_intake(

@@ -65,12 +65,11 @@ from bz2tpu_torch.ops.huffman_dec import (
 )
 from bz2tpu_torch.ops.ibwt import ibwt
 from bz2tpu_torch.ops.mtf_dec import CHUNK, mtf_rle2_decode
-from bz2tpu_torch.ops.pipeline import StageClock, _lap
 from bz2tpu_torch.ops.rle1_dec import inverse_rle1_crc
 from bz2tpu_torch.runtime.decompressor import walk_members
 from bz2tpu_torch.runtime.decompressor import decompress as host_decompress
 from bz2tpu_torch.utils.device import resolve_device
-from bz2tpu_torch.utils.profiling import count, span
+from bz2tpu_torch.utils.profiling import StageClock, count, lap, span
 
 BUCKET_W = 8  # blocks per device batch, as the JAX form's default
 
@@ -161,7 +160,7 @@ def parse_blocks(
     if not headers or not ends or headers[0] != 32:
         count("decode_fallbacks.scan")
         return None
-    _lap(clock, "parse")
+    lap(clock, "parse")
     with span("bz2.members"):
         markers = sorted(headers + ends)
 
@@ -172,7 +171,7 @@ def parse_blocks(
             return markers[j] if j < len(markers) else None
 
         chain = walk_members(stream, headers, ends, next_marker)
-    _lap(clock, "members")
+    lap(clock, "members")
     if chain is None:
         count("decode_fallbacks.members")
         return None
@@ -271,18 +270,18 @@ def _decode_batch(
     None if any block fails validation. With a clock and ``split``, the
     steps inside "huffman" and "mtf" also add their seconds to ``split``."""
     bt = batch_tensors(rows, device)
-    _lap(clock, "tables")
-    lap = StageClock(split, device).lap if clock is not None and split is not None else lambda stage: None
+    lap(clock, "tables")
+    step = StageClock(split, device).lap if clock is not None and split is not None else lambda stage: None
     hd = decode_symbol_data(
         words, bt["start_bit"], bt["end_bit"], bt["selectors"], bt["n_groups"], bt["base"],
-        bt["perm"], bt["eob"], bt["lut"], bt["lut_idx"], n_bits_cap=nbc, lap=lap,
+        bt["perm"], bt["eob"], bt["lut"], bt["lut_idx"], n_bits_cap=nbc, lap=step,
     )
     del bt["lut"]
-    _lap(clock, "huffman")
+    lap(clock, "huffman")
     G = bt["selectors"].shape[1]
     m = -(-G * C.HUFFMAN_GROUP_SIZE // CHUNK) * CHUNK
     syms = torch.nn.functional.pad(hd["symbols"], (0, m - hd["symbols"].shape[1]), value=-1)
-    md = mtf_rle2_decode(syms, hd["n_sym"], bt["initial_list"], bt["eob"], out_capacity=out_cap, lap=lap)
+    md = mtf_rle2_decode(syms, hd["n_sym"], bt["initial_list"], bt["eob"], out_capacity=out_cap, lap=step)
     ok = hd["ok"] & md["ok"] & (bt["orig_ptr"] < md["n_bwt"])
     del hd, syms
     n_bwt = md["n_bwt"].contiguous()
@@ -292,15 +291,15 @@ def _decode_batch(
     if not all(checks[:b]) or any(n > p["level"] * C.BLOCK_SIZE_BASE for n, p in zip(checks[b:], rows)):
         count("decode_fallbacks.validate")
         return None
-    _lap(clock, "mtf")
+    lap(clock, "mtf")
     decoded = ibwt(md["bwt"], n_bwt, bt["orig_ptr"])
-    _lap(clock, "ibwt")
+    lap(clock, "ibwt")
     flat, ends, crcs = inverse_rle1_crc(decoded, n_bwt)
     del decoded
     data = memoryview(flat.cpu().numpy())
     crcs = crcs.tolist()
     count("decode_rle1_device", b)
-    _lap(clock, "rle1_crc")
+    lap(clock, "rle1_crc")
     return [(data[ends[r] : ends[r + 1]], crcs[r]) for r in range(b)]
 
 
@@ -316,7 +315,7 @@ def _decompress_device_inner(
     validation), "ibwt" and "rle1_crc" (each batch's inverse RLE1, block
     CRCs and copy back on the device, then the CRC checks and each
     member's stream CRC on the host); every lap waits for the device (see
-    ops/pipeline.StageClock). With ``split`` too, the steps of "huffman"
+    utils/profiling.StageClock). With ``split`` too, the steps of "huffman"
     accumulate there under "jump_maps", "dec_chain" (D1), "dec_symbols"
     (D3) and "validate", and those of "mtf" under "segments",
     "chunk_perms" (D4), "chunk_scan" and "expand".
@@ -324,7 +323,7 @@ def _decompress_device_inner(
     clock = None if timings is None else StageClock(timings, device)
     with span("bz2.parse"):
         plan = parse_blocks(stream, clock)
-    _lap(clock, "parse")
+    lap(clock, "parse")
     if plan is None:
         return None
     parsed, members = plan
@@ -375,5 +374,5 @@ def _join_members(
             # to the members before a later one.
             count("decode_fallbacks.stream_crc")
             return None
-    _lap(clock, "rle1_crc")
+    lap(clock, "rle1_crc")
     return b"".join(pieces)

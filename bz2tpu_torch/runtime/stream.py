@@ -11,12 +11,10 @@ other.
 
 Each round splits the pending bytes on the host (runtime/compressor.
 split_blocks), holds back the trailing block, and sends the rest through
-the port's device driver in batches of ``parallel`` blocks, one
-device-to-host copy a batch; the finished batch's bits go to the
-stitcher. With ``BZ2TPU_DEVICE_STITCH=0`` (compressor._DEVICE_STITCH) the
-blocks come back one by one (compressor._encode_batches, through the block
-mesh where a process group's ranks divide the batch) and the stitcher
-takes each, as in bz2tpu.
+compress's own loop, compressor.encode_parts, in batches of ``parallel``
+blocks; each piece of the stream it yields goes to the stitcher: a batch,
+or on compress's per-block path a block (through the block mesh where a
+process group's ranks divide the batch), as in bz2tpu.
 """
 
 from __future__ import annotations
@@ -25,10 +23,8 @@ import numpy as np
 import torch
 
 from bz2tpu_torch.format import constants as C
-from bz2tpu_torch.format.bitio import BitWriter
 from bz2tpu_torch.format.crc32 import stream_crc_fold
 from bz2tpu_torch.runtime import compressor
-from bz2tpu_torch.runtime.compressor import DEFAULT_BATCH, _batch_tensors, _encode, split_blocks
 from bz2tpu_torch.utils.device import resolve_device
 
 
@@ -125,13 +121,12 @@ class StreamCompressor:
     ) -> None:
         from contextlib import nullcontext
 
-        if not C.MIN_LEVEL <= level <= C.MAX_LEVEL:
-            raise ValueError(f"block size level must be 1..9, got {level}")
+        compressor._check_level(level)
         self._device = resolve_device(device)
         self._sink = sink
         self._metrics = metrics
         self._stage = metrics.stage if metrics is not None else (lambda name: nullcontext())
-        self._batch = parallel or DEFAULT_BATCH
+        self._batch = parallel or compressor.DEFAULT_BATCH
         self._chunk_blocks = chunk_blocks or self._batch
         self._stitcher = BitStitcher(sink)
         self._closed = False
@@ -142,10 +137,7 @@ class StreamCompressor:
             self._n_batches = 0
             self._pending = b""  # raw bytes accepted but not yet encoded
             self.input_offset = 0  # total raw bytes accepted via write()
-            head = BitWriter()
-            head.write_bits(24, int.from_bytes(C.STREAM_MAGIC, "big"))
-            head.write_bits(8, ord("0") + self.level)
-            self._stitcher.append(np.frombuffer(head.getvalue(), np.uint8), head.bit_length)
+            self._stitcher.append(*compressor._stream_header(self.level))
         else:
             self._restore(state)
         self._capacity = C.BLOCK_SIZE_BASE * self.level
@@ -221,10 +213,7 @@ class StreamCompressor:
         if self._closed:
             return
         self._encode(final=True)
-        tail = BitWriter()
-        tail.write_bits(48, C.STREAM_END_MARKER)
-        tail.write_bits(32, self._s_crc)
-        self._stitcher.append(np.frombuffer(tail.getvalue(), np.uint8), tail.bit_length)
+        self._stitcher.append(*compressor._trailer(self._s_crc))
         self._stitcher.finish()
         self._closed = True
         if self._metrics is not None:
@@ -236,27 +225,23 @@ class StreamCompressor:
         """Encode available full blocks; returns raw bytes consumed."""
         data = np.frombuffer(self._pending, dtype=np.uint8)
         with self._stage("rle1_split"):
-            blocks = split_blocks(data, self.level)
+            blocks = compressor.split_blocks(data, self.level)
         if not final and blocks:
             # Hold back the trailing (possibly partial) block's raw bytes:
             # more input may extend it.
             blocks = blocks[:-1]
         raw_consumed = sum(b.raw_length for b in blocks)
         self._pending = self._pending[raw_consumed:] if not final else b""
-        if compressor._DEVICE_STITCH:
-            for base in range(0, len(blocks), self._batch):
-                with self._stage("device_encode"):
-                    row, nbits = _encode(*_batch_tensors(blocks[base : base + self._batch], self._device))
-                with self._stage("stitch"):
-                    self._stitcher.append(row, nbits)
-        else:
-            rows = compressor._encode_batches(blocks, self._batch, self._device)
-            for _ in blocks:
-                with self._stage("device_encode"):
-                    row = next(rows)
-                with self._stage("stitch"):
-                    # The device words are the complete block bitstream.
-                    self._stitcher.append(row["words"].astype(">u4").view(np.uint8), row["total_bits"])
+        if not blocks:
+            return 0
+        parts = compressor.encode_parts(blocks, self._batch, self._device)
+        while True:
+            with self._stage("device_encode"):
+                part = next(parts, None)
+            if part is None:
+                break
+            with self._stage("stitch"):
+                self._stitcher.append(*part)
         for blk in blocks:
             self._s_crc = stream_crc_fold(self._s_crc, blk.crc)
             self.n_blocks += 1

@@ -26,6 +26,10 @@ idle gaps inside it as busy. Every span name is in ``SPANS``:
   bz2.parse     decode: the block scan and the header parse
   bz2.members   inside bz2.parse: the member walk (parse_blocks)
 
+``StageClock(timings, device)`` adds each stage's seconds to
+``timings[name]`` at each ``lap(clock, name)``, waiting for the device
+first; ``lap`` with no clock does nothing.
+
 ``count(name)`` adds to ``COUNTERS``, plain ints that run whether or not
 a profiler does (unlocked: calls on several threads at once may lose an
 increment); ``counters()`` is a snapshot of them with each kernel's
@@ -84,6 +88,32 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch._C._profiler._RecordFunctionFast(name)
     return _OFF
+
+
+class StageClock:
+    """Adds each stage's seconds to ``timings[name]``. Every lap waits for
+    the device, so a clocked run is slightly slower than an unclocked one."""
+
+    def __init__(self, timings: dict, device: torch.device):
+        self.timings = timings
+        self.device = device
+        self.t = self._now()
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        t = self._now()
+        self.timings[name] = self.timings.get(name, 0.0) + (t - self.t)
+        self.t = t
+
+
+def lap(clock: StageClock | None, name: str) -> None:
+    """``clock.lap(name)``, where there is a clock."""
+    if clock is not None:
+        clock.lap(name)
 
 
 def count(name: str, n: int = 1) -> None:

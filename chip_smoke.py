@@ -524,7 +524,7 @@ def search_steps(n: int) -> int:
 
 def intake_split(chunk, length: int, level: int, max_blocks: int, reps: int = 5) -> dict | None:
     """The steps of ops/intake.device_intake on one chunk, lapped inside it
-    by a stage clock (ops/pipeline.StageClock): rle1_encode, block_cuts,
+    by a stage clock (utils/profiling.StageClock): rle1_encode, block_cuts,
     rows (the rows gather, ns and raw lengths) and crc32_ranges, the median
     of ``reps`` runs after a warm-up, in seconds. Reads the bz2tpu_torch
     already imported, so tools/time_intake.py times another checkout's
@@ -532,7 +532,7 @@ def intake_split(chunk, length: int, level: int, max_blocks: int, reps: int = 5)
     import inspect
 
     from bz2tpu_torch.ops.intake import device_intake
-    from bz2tpu_torch.ops.pipeline import StageClock
+    from bz2tpu_torch.utils.profiling import StageClock
 
     if "lap" not in inspect.signature(device_intake).parameters:
         return None
@@ -577,7 +577,7 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     import bz2tpu_torch
     from bz2tpu_torch import native
     from bz2tpu_torch.ops import bwt_cuda, dec_cuda, huffman_cuda, mtf_cuda, mtf_dec_cuda, rle1_dec_cuda
-    from bz2tpu_torch.runtime import stream
+    from bz2tpu_torch.runtime import compressor, stream
 
     mb = len(corpus) / 1e6
     path = os.path.join(tmp, "corpus.dat")
@@ -586,14 +586,15 @@ def files_and_streams(tmp, corpus, out, intake_out, blocks, block_rounds, all_co
     # (a) the default path: compress_file through StreamCompressor. The
     # batch sizes the stream forms are recorded on the way to the card.
     sizes: list[int] = []
-    real_batch_tensors = stream._batch_tensors
-    stream._batch_tensors = lambda chunk, device: sizes.append(len(chunk)) or real_batch_tensors(chunk, device)
+    real_batch_tensors = compressor._batch_tensors
+    compressor._batch_tensors = lambda chunk, device, n_rows=None: (
+        sizes.append(len(chunk)) or real_batch_tensors(chunk, device, n_rows))
     torch.cuda.reset_peak_memory_stats()
     zero(*all_counts)
     try:
         rc, err, file_s = cli_run([path, "--size", str(LEVEL), "--metrics"])
     finally:
-        stream._batch_tensors = real_batch_tensors
+        compressor._batch_tensors = real_batch_tensors
     file_peak = torch.cuda.max_memory_allocated()
     launches = {**bwt_cuda.LAUNCHES, **mtf_cuda.LAUNCHES, **huffman_cuda.LAUNCHES}
     if rc != 0:

@@ -13,6 +13,7 @@ import torch
 
 import bz2tpu_torch
 from bz2tpu.oracle import compress as oracle_compress
+from bz2tpu_torch.runtime import compressor
 
 from conftest import CORPUS_KINDS, make_corpus
 
@@ -57,6 +58,36 @@ def test_timings_cover_every_stage(rng):
     out = bz2tpu_torch.compress(data, level=1, device="cpu", timings=timings)
     assert stdlib_bz2.decompress(out) == data
     assert set(timings) == {"bwt", "mtf", "rle2_out", "huffman", "pack"}
+
+
+# The names the benchmark wraps or replaces in the compress driver: each
+# must be called through the module, so a patch set there is reached.
+SEAMS = ("split_blocks", "_batch_tensors", "encode_batch", "_finish")
+
+
+@pytest.mark.parametrize("seam", SEAMS)
+def test_compress_calls_its_seams_through_the_module(rng, seam, monkeypatch):
+    data = make_corpus(rng, "text", 250_000)  # 3 level-1 blocks: batches of 2, then 1
+    want = bz2tpu_torch.compress(data, level=1, parallel=2, device="cpu")
+    calls = []
+    real = getattr(compressor, seam)
+    monkeypatch.setattr(compressor, seam, lambda *a, **k: calls.append(1) or real(*a, **k))
+    assert bz2tpu_torch.compress(data, level=1, parallel=2, device="cpu") == want
+    assert len(calls) == {"split_blocks": 1, "_batch_tensors": 2, "encode_batch": 2, "_finish": 1}[seam]
+
+
+@pytest.mark.parametrize("parallel", [None, 1, 3, 8])
+def test_mesh_batch_cuts_the_default_batches(parallel, monkeypatch):
+    """encode_parts at compress's batch, _mesh_batch(n, parallel), yields
+    the same batches as at parallel or DEFAULT_BATCH, for 0 to 17 blocks."""
+    monkeypatch.setattr(compressor, "_batch_tensors", lambda chunk, device, n_rows=None: (list(chunk),))
+    monkeypatch.setattr(compressor, "_encode", lambda chunk, timings=None: (chunk, len(chunk)))
+    for n in range(18):
+        blocks = list(range(n))
+        got = list(compressor.encode_parts(blocks, compressor._mesh_batch(n, parallel), "cpu"))
+        want = list(compressor.encode_parts(blocks, parallel or compressor.DEFAULT_BATCH, "cpu"))
+        assert got == want, n
+        assert [b for chunk, _ in got for b in chunk] == blocks, n
 
 
 def test_cuda_without_card_raises(monkeypatch):

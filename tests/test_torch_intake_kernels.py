@@ -391,7 +391,7 @@ def test_cpu_intake_takes_the_plain_versions_and_launches_nothing(monkeypatch):
 
 
 def test_device_intake_laps_its_steps_and_keeps_its_results():
-    from bz2tpu_torch.ops.pipeline import StageClock
+    from bz2tpu_torch.utils.profiling import StageClock
 
     rng = np.random.default_rng(970)
     n, N = 100_000, intake.chunk_capacity(1, 2)

@@ -400,12 +400,12 @@ def test_a_group_of_one_takes_the_single_device_path(tmp_path):
         from bz2tpu_torch.runtime import compressor
         initialize(backend="gloo", timeout_s=30)
         assert dist.is_initialized() and dist.get_world_size() == 1
-        calls = []
+        groups = []
         real = mesh.encode_blocks_sharded
-        mesh.encode_blocks_sharded = lambda *a, **k: calls.append(1) or real(*a, **k)
+        mesh.encode_blocks_sharded = lambda *a, **k: groups.append(k["mesh"].group) or real(*a, **k)
         compressor._DEVICE_STITCH = False
         stream = compressor.compress(Path({str(path)!r}).read_bytes(), level={LEVEL}, parallel=2, device="cpu")
-        assert calls == [], calls
+        assert groups and all(g is None for g in groups), groups  # a one-rank mesh: no collective
         Path({str(out)!r}).write_bytes(stream)
         dist.destroy_process_group()
         print("CASE-OK")

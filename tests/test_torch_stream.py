@@ -17,7 +17,7 @@ import torch
 
 import bz2tpu_torch
 from bz2tpu.format.bitio import BitWriter, concat_bitstreams
-from bz2tpu_torch.runtime import stream
+from bz2tpu_torch.runtime import compressor, stream
 from bz2tpu_torch.utils.metrics import RunMetrics
 
 from conftest import make_corpus
@@ -114,6 +114,23 @@ def test_compress_stream_small_inputs(data, level):
     assert stdlib_bz2.decompress(got) == data
 
 
+@pytest.mark.parametrize("device_stitch", [True, False], ids=["concat", "per-block"])
+def test_stream_encodes_through_encode_parts(device_stitch, monkeypatch):
+    # 4 level-1 blocks, read two blocks' capacity at a time: two rounds of
+    # 2 blocks, each one encode_parts call.
+    rng = np.random.default_rng(650)
+    data = make_corpus(rng, "text", 350_000)
+    monkeypatch.setattr(compressor, "_DEVICE_STITCH", device_stitch)
+    calls = []
+    real = compressor.encode_parts
+    monkeypatch.setattr(compressor, "encode_parts",
+                        lambda blocks, *a, **k: calls.append(len(blocks)) or real(blocks, *a, **k))
+    got = _port_stream(data)
+    assert calls == [2, 2]
+    assert got == bz2tpu_torch.compress(data, level=1, parallel=PARALLEL, device="cpu")
+    assert stdlib_bz2.decompress(got) == data
+
+
 def test_compress_file_failure_leaves_no_output(tmp_path, monkeypatch):
     src = tmp_path / "in.dat"
     src.write_bytes(b"abc" * 1000)
@@ -121,7 +138,7 @@ def test_compress_file_failure_leaves_no_output(tmp_path, monkeypatch):
     def boom(*args, **kwargs):
         raise RuntimeError("encode failed")
 
-    monkeypatch.setattr(stream, "_encode", boom)
+    monkeypatch.setattr(compressor, "_encode", boom)
     with pytest.raises(RuntimeError, match="encode failed"):
         stream.compress_file(str(src), str(tmp_path / "out.bz2"), level=1, device="cpu")
     assert [p.name for p in tmp_path.iterdir()] == ["in.dat"]

@@ -20,7 +20,8 @@ it: API ``compress`` calls compress(FILE's bytes, LEVEL, PARALLEL), API
 ``stream`` compress_stream of FILE, API ``fail`` raises on rank 1 before
 compress (the other ranks must fail, not hang); each rank writes its
 stream to OUT_DIR/stream_compress.<rank> and the number of
-encode_blocks_sharded calls it made to OUT_DIR/mesh_calls.<rank>.
+encode_blocks_sharded calls it made on the group's mesh (a one-rank mesh
+has no group) to OUT_DIR/mesh_calls.<rank>.
 """
 
 import io
@@ -88,7 +89,13 @@ def compress_through_the_entry_point(rank: int, path: str, level: int, parallel:
 
     calls = []
     real = mesh_module.encode_blocks_sharded
-    mesh_module.encode_blocks_sharded = lambda *a, **k: calls.append(1) or real(*a, **k)
+
+    def counted(*a, mesh, **k):
+        if mesh.group is not None:
+            calls.append(1)
+        return real(*a, mesh=mesh, **k)
+
+    mesh_module.encode_blocks_sharded = counted
     compressor._DEVICE_STITCH = False
     data = Path(path).read_bytes()
     if api == "fail" and rank == 1:
