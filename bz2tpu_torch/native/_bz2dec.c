@@ -726,14 +726,26 @@ done:
 /* apples-to-apples per block (round 5: the level-6 sweep's +0.006%    */
 /* was entirely boundary drift — on stock's spans our encoder was 291  */
 /* bytes SMALLER than stock).                                          */
+/* The split resumes at raw offset `start` and stops after            */
+/* `max_blocks` blocks (0: at the end). A cut carries no state but the */
+/* raw offset (an open run moves whole into the next block), so from a */
+/* block boundary it gives the blocks that one pass gives there.       */
 
-static PyObject *py_rle1_split(PyObject *self, PyObject *args) {
+static PyObject *py_rle1_split(PyObject *self, PyObject *args, PyObject *kwargs) {
+    static char *kwlist[] = {"data", "level", "start", "max_blocks", NULL};
     Py_buffer view;
     int level;
-    if (!PyArg_ParseTuple(args, "y*i", &view, &level)) return NULL;
+    Py_ssize_t start = 0, max_blocks = 0;
+    if (!PyArg_ParseTupleAndKeywords(args, kwargs, "y*i|nn", kwlist, &view, &level, &start, &max_blocks))
+        return NULL;
     if (level < 1 || level > 9) {
         PyBuffer_Release(&view);
         PyErr_SetString(PyExc_ValueError, "level must be 1..9");
+        return NULL;
+    }
+    if (start < 0 || start > view.len || max_blocks < 0) {
+        PyBuffer_Release(&view);
+        PyErr_SetString(PyExc_ValueError, "start must be in 0..len(data) and max_blocks >= 0");
         return NULL;
     }
     const uint8_t *in = (const uint8_t *)view.buf;
@@ -744,8 +756,8 @@ static PyObject *py_rle1_split(PyObject *self, PyObject *args) {
     uint8_t *out = (uint8_t *)malloc(cap + 8);
     if (!blocks || !out) goto oom;
 
-    size_t i = 0;
-    while (i < n) {
+    size_t i = (size_t)start;
+    while (i < n && (max_blocks == 0 || PyList_GET_SIZE(blocks) < max_blocks)) {
         size_t out_len = 0;
         size_t raw_start = i;
         uint32_t crc = 0xFFFFFFFFu;
@@ -851,8 +863,10 @@ static PyMethodDef methods[] = {
     {"decode_stream", (PyCFunction)py_decode_stream, METH_VARARGS | METH_KEYWORDS,
      "Decode a .bz2 stream to bytes (raises ValueError / CrcError)."},
     {"crc32", py_crc32, METH_VARARGS, "CRC-32/BZIP2 of a buffer (finalized)."},
-    {"rle1_split", py_rle1_split, METH_VARARGS,
-     "RLE1-encode and split into blocks: [(block_bytes, raw_len, crc), ...]."},
+    {"rle1_split", (PyCFunction)py_rle1_split, METH_VARARGS | METH_KEYWORDS,
+     "rle1_split(data, level, start=0, max_blocks=0): RLE1-encode and split into blocks from raw "
+     "offset start (a block boundary), at most max_blocks of them (0: to the end): "
+     "[(block_bytes, raw_len, crc), ...]."},
     {"scan_blocks", py_scan_blocks, METH_VARARGS,
      "Scan for block/end markers: ([header_bit_offsets], [end_bit_offsets])."},
     {"parse_block_header", py_parse_block_header, METH_VARARGS,

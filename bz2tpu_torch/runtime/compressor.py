@@ -7,15 +7,21 @@ CRC run on the host; each batch of at most ``parallel`` blocks goes through
 ops/pipeline.encode_batch on the device, and its packed words come back in
 one device-to-host copy. Batches are not padded to a fixed size and there
 is no dispatch-ahead: eager torch has no per-shape compile to amortise.
-encode_parts is the one loop over a stream's host blocks, which compress
-and runtime/stream.py share. With ``BZ2TPU_DEVICE_STITCH=0`` each block
-comes back on its own (_encode_batches, the path that drives the block
-mesh in a multi-process job) and the host stitches them, as in bz2tpu.
+compress splits a batch at a time (_split_ahead): where the input spans
+more than one batch, a worker thread splits batch i + 1 while the calling
+thread encodes batch i. encode_parts is the one loop over a stream's
+batches, which compress and runtime/stream.py share. With
+``BZ2TPU_DEVICE_STITCH=0`` each block comes back on its own
+(_encode_batches, the path that drives the block mesh in a multi-process
+job) and the host stitches them, as in bz2tpu.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -46,17 +52,77 @@ META = ("orig_ptr", "n_sym", "n_in_use", "n_groups", "n_selectors", "total_bits"
 Part = tuple[np.ndarray, int]  # (bytes, valid bits) of one piece of the stream
 
 
-def split_blocks(data: bytes | np.ndarray, level: int) -> list[Rle1Block]:
+@dataclass(frozen=True)
+class BlockRange:
+    """The blocks of ``arr`` from raw offset ``start``, which must be a
+    block boundary of a split from 0, and at most ``max_blocks`` of them
+    (0: to the end): split_blocks gives the blocks a split of the whole
+    ``arr`` gives there."""
+
+    arr: np.ndarray
+    start: int = 0
+    max_blocks: int = 0
+
+
+# A block holds at most 51 raw bytes an RLE1 byte (a run of 255 becomes
+# 5 bytes), and at most capacity + 4 RLE1 bytes.
+_RAW_PER_RLE1 = 51
+
+
+def split_blocks(data: bytes | np.ndarray | BlockRange, level: int) -> list[Rle1Block]:
     """RLE1 + CRC block intake: native C single pass when built, NumPy
-    otherwise (bz2tpu.runtime.compressor.split_blocks)."""
+    otherwise (bz2tpu.runtime.compressor.split_blocks). ``data`` is the
+    whole input, or a BlockRange of it."""
+    r = data if isinstance(data, BlockRange) else BlockRange(data)
     if native.HAVE_NATIVE:
-        arr = data if isinstance(data, (bytes, bytearray, memoryview)) else np.ascontiguousarray(data, np.uint8)
+        arr = r.arr if isinstance(r.arr, (bytes, bytearray, memoryview)) else np.ascontiguousarray(r.arr, np.uint8)
         return [
             Rle1Block(np.frombuffer(b, np.uint8), raw, crc)
-            for b, raw, crc in native.rle1_split(arr, level)
+            for b, raw, crc in native.rle1_split(arr, level, r.start, r.max_blocks)
         ]
-    arr = np.frombuffer(bytes(data), np.uint8) if not isinstance(data, np.ndarray) else data
-    return rle1_split(arr, level)
+    arr = np.frombuffer(bytes(r.arr), np.uint8) if not isinstance(r.arr, np.ndarray) else r.arr
+    # The oracle splits all it is given: give it no more than max_blocks
+    # blocks can hold, so that a batch costs a batch's bytes.
+    stop = r.start + r.max_blocks * _RAW_PER_RLE1 * (C.block_capacity(level) + 4) if r.max_blocks else None
+    return rle1_split(arr[r.start : stop], level)[: r.max_blocks or None]
+
+
+def _split_batch(arr: np.ndarray, level: int, start: int, size: int) -> list[Rle1Block]:
+    """The next batch of at most ``size`` blocks from raw offset ``start``,
+    through split_blocks as the module holds it when called."""
+    with span("bz2.split"):
+        return split_blocks(BlockRange(arr, start, size), level)
+
+
+def _split_ahead(arr: np.ndarray, level: int, size: int, crcs: list[int]):
+    """Yield ``arr``'s blocks in batches of ``size``, in stream order, and
+    append each batch's CRCs to ``crcs`` as it passes.
+
+    The first batch is split on the calling thread. Where more input
+    follows, one worker thread splits the next batch as each is handed
+    out, so batch i + 1 is split while the caller encodes batch i; the
+    calling thread counts ``split_ahead`` where that split had finished
+    when it was asked for, else ``split_waits``. A split's error is raised
+    here. Closing the generator cancels or waits for the split in flight
+    and joins the worker."""
+    pool = None
+    try:
+        blocks, start = _split_batch(arr, level, 0, size), 0
+        while blocks:
+            crcs.extend(b.crc for b in blocks)
+            start += sum(b.raw_length for b in blocks)
+            ahead = None
+            if start < arr.size:
+                pool = pool or ThreadPoolExecutor(max_workers=1, thread_name_prefix="bz2-split")
+                ahead = pool.submit(_split_batch, arr, level, start, size)
+            yield blocks
+            if ahead is None:
+                return
+            count("split_ahead" if ahead.done() else "split_waits")
+            blocks = ahead.result()
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
 
 
 def _as_array(data: bytes | np.ndarray) -> np.ndarray:
@@ -138,11 +204,12 @@ def _mesh_batch(n_blocks: int, parallel: int | None) -> int:
     return batch
 
 
-def _encode_batches(blocks, batch: int, device, timings: dict | None = None):
-    """Encode ``blocks`` in batches of ``batch``; yield one row a block, in
-    stream order, with bz2tpu's keys: orig_ptr, n_sym, n_in_use, n_groups,
-    n_selectors and total_bits (ints), and words (uint32: the block's
-    complete bitstream, header included, in ceil(total_bits / 32) words).
+def _encode_batches(batches, batch: int, device, timings: dict | None = None):
+    """Encode ``batches`` (each a list of at most ``batch`` blocks, bz2tpu's
+    batch for the stream); yield one row a block, in stream order, with
+    bz2tpu's keys: orig_ptr, n_sym, n_in_use, n_groups, n_selectors and
+    total_bits (ints), and words (uint32: the block's complete bitstream,
+    header included, in ceil(total_bits / 32) words).
 
     Port of bz2tpu.runtime.compressor._encode_batches. Each batch goes
     through a block mesh: the default process group's where it has S > 1
@@ -171,8 +238,7 @@ def _encode_batches(blocks, batch: int, device, timings: dict | None = None):
     # A group's ranks each hold the whole batch on the host and move only
     # their rows to the card; one rank uploads it under bz2.upload.
     host = dev if mesh.group is None else "cpu"
-    for base in range(0, len(blocks), batch):
-        chunk = blocks[base : base + batch]
+    for chunk in batches:
         count("batches")
         n_rows = pad_batch(len(chunk), mesh.size)
         out = encode_blocks_sharded(*_batch_tensors(chunk, host, n_rows), mesh=mesh, timings=timings)
@@ -196,17 +262,23 @@ def _encode_batches(blocks, batch: int, device, timings: dict | None = None):
             yield row
 
 
-def encode_parts(blocks, batch: int, device, timings: dict | None = None):
-    """The stream's Parts for ``blocks`` in stream order, the blocks
-    encoded in batches of ``batch`` on ``device``: one Part a batch (_encode,
-    the batch concatenated on the device), or with ``_DEVICE_STITCH`` off
-    one a block (_encode_batches). ``timings`` as there."""
+def batched(blocks: list[Rle1Block], batch: int) -> list[list[Rle1Block]]:
+    """``blocks`` cut into batches of ``batch``, the last one short."""
+    return [blocks[base : base + batch] for base in range(0, len(blocks), batch)]
+
+
+def encode_parts(batches, batch: int, device, timings: dict | None = None):
+    """The stream's Parts for ``batches`` (an iterable of lists of at most
+    ``batch`` blocks, in stream order; each is encoded as it is taken) on
+    ``device``: one Part a batch (_encode, the batch concatenated on the
+    device), or with ``_DEVICE_STITCH`` off one a block (_encode_batches,
+    whose mesh ``batch`` decides). ``timings`` as there."""
     if not _DEVICE_STITCH:
-        for row in _encode_batches(blocks, batch, device, timings):
+        for row in _encode_batches(batches, batch, device, timings):
             yield row["words"].astype(">u4").view(np.uint8), row["total_bits"]
         return
-    for base in range(0, len(blocks), batch):
-        yield _encode(*_batch_tensors(blocks[base : base + batch], device), timings=timings)
+    for chunk in batches:
+        yield _encode(*_batch_tensors(chunk, device), timings=timings)
 
 
 def compress(
@@ -229,12 +301,18 @@ def compress(
     dev = resolve_device(device)
     arr = _as_array(data)
     _check_level(level)
-    with span("bz2.split"):
-        blocks = split_blocks(arr, level)
-    # bz2tpu's batch on both paths: where it is not parallel or
-    # DEFAULT_BATCH, the stream is shorter, so one batch either way.
-    parts = encode_parts(blocks, _mesh_batch(len(blocks), parallel), dev, timings)
-    return _finish([_stream_header(level), *parts], [b.crc for b in blocks])
+    crcs: list[int] = []
+    batches = _split_ahead(arr, level, parallel or DEFAULT_BATCH, crcs)
+    try:
+        first = next(batches, None)
+        # bz2tpu's batch for the stream: a first batch that is not full is
+        # the whole stream, and a full one says the stream has at least as
+        # many blocks, which is all _mesh_batch reads.
+        batch = _mesh_batch(len(first or ()), parallel)
+        parts = encode_parts(itertools.chain([first], batches) if first else (), batch, dev, timings)
+        return _finish([_stream_header(level), *parts], crcs)
+    finally:
+        batches.close()
 
 
 def compress_device_intake(

@@ -234,7 +234,7 @@ class StreamCompressor:
         self._pending = self._pending[raw_consumed:] if not final else b""
         if not blocks:
             return 0
-        parts = compressor.encode_parts(blocks, self._batch, self._device)
+        parts = compressor.encode_parts(compressor.batched(blocks, self._batch), self._batch, self._device)
         while True:
             with self._stage("device_encode"):
                 part = next(parts, None)

@@ -15,7 +15,10 @@ mirrored on the card's timeline over the kernels it encloses, where a
 reader that takes every device interval for busy time would count the
 idle gaps inside it as busy. Every span name is in ``SPANS``:
 
-  bz2.split     compress: the host RLE1 split and block CRCs (split_blocks)
+  bz2.split     compress: the host RLE1 split and block CRCs of a batch
+                (split_blocks); after a call's first batch it runs on the
+                split worker, where torch.profiler, whose state is per
+                thread, does not record it
   bz2.upload    compress: a batch's padded buffer and its copy to the card
   bz2.encode    compress: every launch of a batch (ops/pipeline.encode_batch)
   bz2.bwt, bz2.mtf, bz2.rle2_out, bz2.huffman, bz2.pack
@@ -36,6 +39,11 @@ increment); ``counters()`` is a snapshot of them with each kernel's
 launches. Every counter name is in ``COUNTER_NAMES``:
 
   batches               compress batches through the card
+  split_ahead           compress batches after a call's first whose split on
+                        the worker had finished when the calling thread took
+                        the batch (compressor._split_ahead)
+  split_waits           such batches whose split had not finished: the
+                        calling thread waited for it
   bwt_rounds            BWT sort-and-rerank rounds (round 0 and each doubling)
   host_syncs            blocking reads of a value from the card (bz2.wait)
   decode_headers        block headers parsed by the C core for streams the
@@ -74,7 +82,7 @@ SPANS = (
 )
 FALLBACK_REASONS = ("no_native", "header", "scan", "members", "block", "validate", "stream_crc")
 COUNTER_NAMES = (
-    "batches", "bwt_rounds", "host_syncs", "decode_headers", "decode_members", "decode_rle1_device",
+    "batches", "split_ahead", "split_waits", "bwt_rounds", "host_syncs", "decode_headers", "decode_members", "decode_rle1_device",
     *(f"decode_fallbacks.{r}" for r in FALLBACK_REASONS),
 )
 COUNTERS: dict[str, int] = dict.fromkeys(COUNTER_NAMES, 0)

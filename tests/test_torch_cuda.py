@@ -949,7 +949,7 @@ def test_per_block_path_on_card_matches_concat_at_level5(cuda, monkeypatch):
     data += _corpus("text", 90_111, 758).tobytes()
     want = bz2tpu_torch.compress(data, level=5, parallel=2)
     monkeypatch.setattr(compressor, "_DEVICE_STITCH", False)
-    rows = list(compressor._encode_batches(split_blocks(data, 5), 2, cuda))
+    rows = list(compressor._encode_batches(compressor.batched(split_blocks(data, 5), 2), 2, cuda))
     assert len(rows) == 3 and all(r["words"].size == (r["total_bits"] + 31) // 32 for r in rows)
     assert bz2tpu_torch.compress(data, level=5, parallel=2) == want
     assert stdlib_bz2.decompress(want) == data

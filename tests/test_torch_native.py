@@ -98,3 +98,95 @@ def test_port_scan_blocks_matches_bit_serial(case):
         assert native.scan_blocks(buf) == want  # the bit-serial C scan
     if case.split("-")[0] in ("block", "end", "last"):
         assert want[0] or want[1]  # the planted marker is there to find
+
+
+# --------------------------------------------------------------------------
+# The resumable split: rle1_split(data, level, start, max_blocks) from a
+# block boundary gives the blocks one pass gives there.
+
+
+def _split_input(level: int, kind: str) -> np.ndarray:
+    """About 3.5 blocks of ``kind`` at ``level`` (2.2 of zeros, whose
+    blocks hold 51 raw bytes an RLE1 byte)."""
+    rng = np.random.default_rng([1750, level, len(kind)])
+    cap = level * 100_000
+    if kind == "text":
+        return np.frombuffer(make_corpus(rng, "text", 7 * cap // 2), np.uint8)
+    if kind == "random":
+        return rng.integers(0, 256, 7 * cap // 2, dtype=np.uint8)
+    if kind == "zeros":
+        return np.zeros(int(2.2 * 51 * cap), np.uint8)
+    return _runs_across_cuts(rng, level * 100_000 - 19)
+
+
+def _runs_across_cuts(rng: np.random.Generator, cap: int) -> np.ndarray:
+    """Runs of 4-600 equal bytes, each after 0-40 literals, and three blocks
+    that each end inside a run: literals up to one RLE1 byte short of
+    ``cap``, then a run of 600 whose first 255-byte piece crosses it, so
+    the next block starts 345 bytes before the run's end."""
+    counts = []
+    out = 0  # RLE1 bytes in the block so far
+    full = 0
+    while full < 3 or out < cap // 2:
+        if full < 3 and cap - out <= 100:
+            counts += [1] * (cap - out - 1) + [600]
+            full, out = full + 1, 10  # the run's last two pieces, 255 and 90 bytes
+            continue
+        lit, run = int(rng.integers(0, 41)), int(rng.integers(4, 601))
+        counts += [1] * lit + [run]
+        out += lit + 5 * (run // 255) + (5 if run % 255 >= 4 else run % 255)
+    # Each value differs from the one before, so no literal joins a run.
+    vals = np.cumsum(rng.integers(1, 256, len(counts))) % 256
+    return np.repeat(vals.astype(np.uint8), counts)
+
+
+def _one_pass_cuts(blocks) -> list[int]:
+    return np.cumsum([0] + [raw for _, raw, _ in blocks]).tolist()
+
+
+@pytest.mark.parametrize("kind", ["text", "runs", "random", "zeros"])
+@pytest.mark.parametrize("level", [1, 2, 9])
+def test_resumed_split_matches_one_pass(level, kind):
+    from bz2tpu_torch.runtime.compressor import BlockRange, split_blocks
+
+    data = _split_input(level, kind)
+    whole = port_native.rle1_split(data, level)
+    cuts = _one_pass_cuts(whole)
+    assert len(whole) >= 2 and cuts[-1] == data.size
+    if kind == "runs":  # every block after the first starts inside a run
+        assert all(data[c - 1] == data[c] for c in cuts[1:-1]) and len(whole) == 4
+    for j, start in enumerate(cuts[:-1]):
+        for most in (1, 2, 3):
+            want = whole[j : j + most]
+            assert port_native.rle1_split(data, level, start, most) == want, (start, most)
+            got = split_blocks(BlockRange(data, start, most), level)
+            assert [(bytes(b.data), b.raw_length, b.crc) for b in got] == want, (start, most)
+    assert port_native.rle1_split(data, level, start=cuts[1]) == whole[1:]
+    assert port_native.rle1_split(data, level, data.size, 1) == []
+
+
+@pytest.mark.parametrize("kind", ["text", "runs", "random", "zeros"])
+@pytest.mark.parametrize("level", [1, 2])
+def test_numpy_resumed_split_matches_one_pass(level, kind, monkeypatch):
+    """Without the C core split_blocks resumes on the oracle, given a
+    window of the input that max_blocks blocks cannot outgrow."""
+    from bz2tpu_torch.oracle.encoder import rle1_split
+    from bz2tpu_torch.runtime import compressor
+
+    data = _split_input(level, kind)
+    whole = rle1_split(data, level)
+    cuts = _one_pass_cuts([(None, b.raw_length, None) for b in whole])
+    monkeypatch.setattr(port_native, "HAVE_NATIVE", False)
+    for j, start in enumerate(cuts[:-1]):
+        for most in (1, 2, 3):
+            got = compressor.split_blocks(compressor.BlockRange(data, start, most), level)
+            assert len(got) == len(whole[j : j + most]), (start, most)
+            for g, w in zip(got, whole[j : j + most]):
+                assert (g.raw_length, g.crc) == (w.raw_length, w.crc), (start, most)
+                np.testing.assert_array_equal(g.data, w.data)
+
+
+@pytest.mark.parametrize("bad", [{"start": -1}, {"start": 11}, {"max_blocks": -1}])
+def test_resumed_split_refuses_bad_ranges(bad):
+    with pytest.raises(ValueError, match="start must be"):
+        port_native.rle1_split(b"0123456789", 1, **bad)

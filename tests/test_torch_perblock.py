@@ -83,7 +83,7 @@ def test_encode_batches_rows_match_jax(kind):
     # text: 6 blocks, so 3 batches, the last one short; runs: RLE1 folds
     # them into one block.
     assert len(blocks) == {"text": 6, "runs": 1}[kind]
-    got = list(compressor._encode_batches(blocks, PARALLEL, "cpu"))
+    got = list(compressor._encode_batches(compressor.batched(blocks, PARALLEL), PARALLEL, "cpu"))
     want = list(jax_compressor._encode_batches(jax_compressor.split_blocks(data, LEVEL),
                                                LEVEL * 100_000, PARALLEL))
     assert len(got) == len(want) == len(blocks)
@@ -97,8 +97,8 @@ def test_encode_batches_rows_match_jax(kind):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_encode_batches_timings(kind):
     steps = {}
-    rows = list(compressor._encode_batches(compressor.split_blocks(_data(kind), LEVEL), PARALLEL, "cpu",
-                                           timings=steps))
+    batches = compressor.batched(compressor.split_blocks(_data(kind), LEVEL), PARALLEL)
+    rows = list(compressor._encode_batches(batches, PARALLEL, "cpu", timings=steps))
     assert rows and list(steps) == ["bwt", "mtf", "rle2_out", "huffman", "pack", "fetch"]
 
 

@@ -123,8 +123,13 @@ def test_stream_encodes_through_encode_parts(device_stitch, monkeypatch):
     monkeypatch.setattr(compressor, "_DEVICE_STITCH", device_stitch)
     calls = []
     real = compressor.encode_parts
-    monkeypatch.setattr(compressor, "encode_parts",
-                        lambda blocks, *a, **k: calls.append(len(blocks)) or real(blocks, *a, **k))
+
+    def counted(batches, *a, **k):
+        batches = list(batches)
+        calls.append(sum(map(len, batches)))
+        return real(batches, *a, **k)
+
+    monkeypatch.setattr(compressor, "encode_parts", counted)
     got = _port_stream(data)
     assert calls == [2, 2]
     assert got == bz2tpu_torch.compress(data, level=1, parallel=PARALLEL, device="cpu")
